@@ -1,0 +1,137 @@
+"""Weight bridge from tpureg's flax trees to the port's state dicts.
+
+The port's modules carry the reference networks' torch key names
+(``conv1.0.weight``, ``predict_flow6.weight``, ``upsampled_flow6_to_5.bias``,
+``conv1.1.running_mean``, ...), so a tpureg ``{"params", "batch_stats"}``
+pair maps onto them exactly as tpureg's own torch export maps it
+(``tpureg/compat/torch_export.py``). This module is the port's copy of that
+mapping: ``_translate`` (torch key → flax path, kind) and ``_invert`` (flax
+layout → torch layout) are copied from ``tpureg/compat/torch_import.py:72-130``
+(FlowNet-family keys)
+and ``torch_export.py:45-56``. The trees come in as nested dicts of numpy
+arrays, so nothing here needs JAX.
+
+Layouts: conv kernels HWIO → OIHW; transposed-conv kernels, stored by
+tpureg in the equivalent-convolution layout (kh, kw, in, out), go back to
+torch's (in, out, kh, kw) with the spatial flip undone; BatchNorm
+scale/bias/mean/var → weight/bias/running_mean/running_var, plus a zero
+``num_batches_tracked``, so that a strict ``load_state_dict`` succeeds.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_jax"]
+
+_UPFLOW_RE = re.compile(r"upsampled_flow(\d)_to_(\d)")
+_UPFLOW_FLAX_RE = re.compile(r"^upflow(\d)to(\d)$")
+_BN_TO_TORCH = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                "var": "running_var"}
+
+
+def _conv_leaf(leaf: str) -> str:
+    return {"weight": "kernel", "bias": "bias"}.get(leaf, leaf)
+
+
+def _translate(key: str) -> Optional[Tuple[List[str], str, str]]:
+    """torch key → (flax path segments, leaf name, kind), kind one of
+    'conv', 'deconv', 'bn_param', 'bn_stat'; None for keys with no flax
+    counterpart (num_batches_tracked). The port has no dense layers and no
+    bare PWC deconvs yet, so tpureg's branches for those are not copied."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if leaf == "num_batches_tracked":
+        return None
+    mods = [_UPFLOW_RE.sub(lambda m: f"upflow{m.group(1)}to{m.group(2)}", m)
+            for m in parts[:-1]]
+    last = mods[-1]
+    if last == "0" and len(mods) >= 2:  # Sequential member 0 = conv/deconv
+        if mods[-2].startswith("deconv"):
+            return mods[:-1] + ["convt"], _conv_leaf(leaf), "deconv"
+        return mods[:-1] + ["conv"], _conv_leaf(leaf), "conv"
+    if last == "1" and len(mods) >= 2:  # Sequential member 1 = BatchNorm
+        base = mods[:-1] + ["bn"]
+        kinds = {"weight": ("scale", "bn_param"), "bias": ("bias", "bn_param"),
+                 "running_mean": ("mean", "bn_stat"),
+                 "running_var": ("var", "bn_stat")}
+        if leaf not in kinds:
+            return None
+        return base, kinds[leaf][0], kinds[leaf][1]
+    if last.startswith("upflow"):
+        return mods, _conv_leaf(leaf), "deconv"
+    return mods, _conv_leaf(leaf), "conv"  # bare conv (predict_flow*, ...)
+
+
+def _invert(value: np.ndarray, kind: str, leaf: str) -> np.ndarray:
+    if leaf != "kernel":
+        return value
+    if kind == "conv" and value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if kind == "deconv" and value.ndim == 4:
+        return np.flip(value.transpose(2, 3, 0, 1), axis=(2, 3)).copy()
+    return value
+
+
+def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for name in sorted(tree):
+        node = tree[name]
+        if isinstance(node, dict) or hasattr(node, "items"):
+            yield from _leaves(node, path + (name,))
+        else:
+            yield path + (name,), node
+
+
+def _torch_key(path: Sequence[str]) -> Optional[str]:
+    """flax path (ending in the leaf) → the reference's torch key, or None."""
+    *mods, leaf = path
+    if not mods:
+        return None
+    if mods[-1] == "bn":
+        if leaf not in _BN_TO_TORCH:
+            return None
+        return ".".join(mods[:-1] + ["1", _BN_TO_TORCH[leaf]])
+    if leaf not in ("kernel", "bias"):
+        return None
+    torch_leaf = {"kernel": "weight", "bias": "bias"}[leaf]
+    if mods[-1] in ("conv", "convt"):
+        return ".".join(mods[:-1] + ["0", torch_leaf])
+    mods = [_UPFLOW_FLAX_RE.sub(r"upsampled_flow\1_to_\2", m) for m in mods]
+    return ".".join(mods + [torch_leaf])
+
+
+def _subtree(tree, prefix):
+    for p in prefix:
+        tree = tree[p]
+    return tree
+
+
+def state_dict_from_jax(params, batch_stats=None,
+                        prefix: Tuple[str, ...] = ("predictor",)
+                        ) -> Dict[str, torch.Tensor]:
+    """tpureg ``params``/``batch_stats`` (nested dicts of numpy arrays) →
+    the port's state dict for the module under ``prefix`` (the registration
+    head's predictor by default). Raises if a leaf has no torch counterpart."""
+    out: Dict[str, torch.Tensor] = {}
+    trees = (("params", _subtree(params, prefix)),
+             ("batch_stats", _subtree(batch_stats or {}, prefix)
+              if batch_stats else {}))
+    for collection, tree in trees:
+        for path, value in _leaves(tree):
+            key = _torch_key(path)
+            tr = None if key is None else _translate(key)
+            if tr is None or tr[0] + [tr[1]] != list(path) \
+                    or (tr[2] == "bn_stat") != (collection == "batch_stats"):
+                raise ValueError(f"{collection} leaf {'/'.join(path)} has no "
+                                 f"torch counterpart (tried {key!r})")
+            _, leaf, kind = tr
+            value = _invert(np.asarray(value, dtype=np.float32), kind, leaf)
+            out[key] = torch.tensor(value)
+            if collection == "batch_stats" and leaf == "mean":
+                nbt = key.rsplit(".", 1)[0] + ".num_batches_tracked"
+                out[nbt] = torch.zeros((), dtype=torch.int64)
+    return out

@@ -1,0 +1,90 @@
+"""FlowNetC, the siamese encoder with a correlation cost volume, flownet2
+flavour. Counterpart of ``tpureg/models/flownet_c.py::FlowNetC`` (reference
+flownet2/networks/FlowNetC.py:13-130, grayscale-adapted).
+
+1-channel stems on the fixed and moving channels, correlation at max
+displacement 20 and stride 2 (441 channels) through kernel K1 on the card,
+LeakyReLU(0.1) on the cost volume, a 1×1 ``conv_redir`` (256→32), then
+conv3_1 on the 473-channel concat and the FlowNetS decoder. The upsample-flow
+deconvs are biased here, unlike the FlowNetS blocks. NCHW.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nn.layers import (
+    ConvBlock,
+    bias_uniform01,
+    init_xavier_uniform,
+    predict_flow,
+)
+from ..ops.correlation import correlation, displacement_count
+from .flownet_s import add_decoder_level, refine_level
+
+__all__ = ["FlowNetC"]
+
+
+class FlowNetC(nn.Module):
+    def __init__(self, use_bn: bool = True, max_displacement: int = 20,
+                 corr_stride: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.max_displacement = max_displacement
+        self.corr_stride = corr_stride
+        k_init, b_init = init_xavier_uniform(), bias_uniform01
+
+        def block(cin, cout, k, s):
+            return ConvBlock(cin, cout, k, s, use_bn=use_bn, kernel_init=k_init,
+                             bias_init=b_init, generator=generator)
+
+        corr_ch = displacement_count(max_displacement, corr_stride) ** 2
+        self.conv1 = block(1, 64, 7, 2)
+        self.conv2 = block(64, 128, 5, 2)
+        self.conv3 = block(128, 256, 5, 2)
+        self.conv_redir = block(256, 32, 1, 1)
+        self.conv3_1 = block(32 + corr_ch, 256, 3, 1)
+        self.conv4 = block(256, 512, 3, 2)
+        self.conv4_1 = block(512, 512, 3, 1)
+        self.conv5 = block(512, 512, 3, 2)
+        self.conv5_1 = block(512, 512, 3, 1)
+        self.conv6 = block(512, 1024, 3, 2)
+        self.conv6_1 = block(1024, 1024, 3, 1)
+        self.predict_flow6 = predict_flow(1024, use_bias=True, kernel_init=k_init,
+                                          bias_init=b_init, generator=generator)
+        for level, cat_ch, dec_in, dec_out in ((5, 1026, 1024, 512),
+                                               (4, 770, 1026, 256),
+                                               (3, 386, 770, 128),
+                                               (2, 194, 386, 64)):
+            # biased upsample-flow deconvs (flownet2/networks/FlowNetC.py:53-56)
+            add_decoder_level(self, level, cat_ch, dec_in, dec_out, k_init,
+                              b_init, True, True, generator)
+
+    def forward(self, x):
+        x1 = x[:, 0:1]
+        x2 = x[:, 1:2]
+        c2a = self.conv2(self.conv1(x1))
+        c3a = self.conv3(c2a)
+        c3b = self.conv3(self.conv2(self.conv1(x2)))
+
+        corr = correlation(c3a, c3b, self.max_displacement, self.corr_stride)
+        corr = F.leaky_relu(corr, 0.1)
+        merged = torch.cat([self.conv_redir(c3a), corr], dim=1)
+
+        c3 = self.conv3_1(merged)
+        c4 = self.conv4_1(self.conv4(c3))
+        c5 = self.conv5_1(self.conv5(c4))
+        c6 = self.conv6_1(self.conv6(c5))
+
+        flow6 = self.predict_flow6(c6)
+        cat5, flow5 = refine_level(self, 5, c6, c5, flow6)
+        cat4, flow4 = refine_level(self, 4, cat5, c4, flow5)
+        cat3, flow3 = refine_level(self, 3, cat4, c3, flow4)
+        _, flow2 = refine_level(self, 2, cat3, c2a, flow3)
+        if self.training:
+            return (flow2, flow3, flow4, flow5, flow6)
+        return (flow2,)

@@ -1,0 +1,182 @@
+"""Building blocks with the reference's geometry, names and initialisation,
+the counterpart of ``tpureg/nn/layers.py``.
+
+- ``ConvBlock``: conv [+ BN] + LeakyReLU(0.1), an ``nn.Sequential`` whose
+  members 0 and 1 carry the reference's ``<block>.0.*`` (conv) and
+  ``<block>.1.*`` (BN) state-dict keys;
+- ``IConvBlock``: flownet2's ``i_conv``, a biased conv [+ BN] with no
+  activation;
+- ``Deconv``: ``ConvTranspose2d(k=4, s=2, p=1)`` + LeakyReLU(0.1), keys
+  ``<deconv>.0.*``;
+- ``TorchConvTranspose`` and ``predict_flow``: the bare transposed conv and
+  the 3×3 conv to two flow channels;
+- BatchNorm with torch's defaults (eps 1e-5, momentum 0.1, which is flax's
+  momentum 0.9).
+
+Initialisation follows the package conventions: kaiming_normal(a=0.1) for
+the Pinard lineage, xavier_uniform weights with U(0, 1) biases for NVIDIA's
+flownet2 networks. Draws come from an explicit ``torch.Generator``. Fans
+are counted as flax counts them for its (kh, kw, in, out) kernels, so a
+transposed conv's fan-in is its input channels times the window.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+__all__ = [
+    "ConvBlock",
+    "IConvBlock",
+    "Deconv",
+    "TorchConvTranspose",
+    "torch_conv",
+    "predict_flow",
+    "batch_norm",
+    "init_kaiming_leaky",
+    "init_xavier_uniform",
+    "bias_uniform01",
+    "bias_zeros",
+]
+
+# An initialiser fills a weight in place: fn(weight, fan_in, fan_out, generator).
+WeightInit = Callable[[torch.Tensor, int, int, Optional[torch.Generator]], None]
+# A bias initialiser fills a bias in place: fn(bias, generator).
+BiasInit = Callable[[torch.Tensor, Optional[torch.Generator]], None]
+
+
+def init_kaiming_leaky(negative_slope: float = 0.1) -> WeightInit:
+    """torch ``kaiming_normal_(w, a)``: std = sqrt(2/(1+a²)) / sqrt(fan_in)."""
+    gain = math.sqrt(2.0 / (1.0 + negative_slope**2))
+
+    def init(weight, fan_in, fan_out, generator):
+        weight.normal_(0.0, gain / math.sqrt(fan_in), generator=generator)
+
+    return init
+
+
+def init_xavier_uniform() -> WeightInit:
+    def init(weight, fan_in, fan_out, generator):
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        weight.uniform_(-limit, limit, generator=generator)
+
+    return init
+
+
+def bias_uniform01(bias, generator):
+    """torch ``init.uniform_(bias)`` default U(0, 1), a flownet2 quirk."""
+    bias.uniform_(0.0, 1.0, generator=generator)
+
+
+def bias_zeros(bias, generator):
+    bias.zero_()
+
+
+@torch.no_grad()
+def _init_(conv, kernel_init: WeightInit, bias_init: BiasInit, generator):
+    w = conv.weight
+    window = w[0, 0].numel()
+    if isinstance(conv, nn.ConvTranspose2d):  # (in, out, kh, kw)
+        fan_in, fan_out = w.shape[0] * window, w.shape[1] * window
+    else:  # (out, in, kh, kw)
+        fan_in, fan_out = w.shape[1] * window, w.shape[0] * window
+    kernel_init(w, fan_in, fan_out, generator)
+    if conv.bias is not None:
+        bias_init(conv.bias, generator)
+    return conv
+
+
+def torch_conv(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
+               padding: Optional[int] = None, dilation: int = 1,
+               use_bias: bool = True,
+               kernel_init: WeightInit = init_kaiming_leaky(0.1),
+               bias_init: BiasInit = bias_zeros,
+               generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    """``nn.Conv2d`` with torch geometry: pad = (k-1)//2 · dilation."""
+    pad = (kernel_size - 1) // 2 * dilation if padding is None else padding
+    conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride, pad, dilation,
+                     bias=use_bias)
+    return _init_(conv, kernel_init, bias_init, generator)
+
+
+def predict_flow(in_ch: int, use_bias: bool = False,
+                 kernel_init: WeightInit = init_kaiming_leaky(0.1),
+                 bias_init: BiasInit = bias_zeros,
+                 generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    """3×3 conv to the 2 flow channels (bias per package convention)."""
+    return torch_conv(in_ch, 2, 3, 1, use_bias=use_bias,
+                      kernel_init=kernel_init, bias_init=bias_init,
+                      generator=generator)
+
+
+class TorchConvTranspose(nn.ConvTranspose2d):
+    """torch ``ConvTranspose2d(k, s, p)``; (in-1)*s - 2p + k output size,
+    exactly 2× for the reference's k=4, s=2, p=1."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1, use_bias: bool = False,
+                 kernel_init: WeightInit = init_kaiming_leaky(0.1),
+                 bias_init: BiasInit = bias_zeros,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding,
+                         bias=use_bias)
+        _init_(self, kernel_init, bias_init, generator)
+
+
+def batch_norm(channels: int) -> nn.BatchNorm2d:
+    """torch-default BatchNorm: eps 1e-5, momentum 0.1 (flax momentum 0.9)."""
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+class ConvBlock(nn.Sequential):
+    """conv [+ BN] + LeakyReLU(0.1), the universal encoder block."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, padding: Optional[int] = None,
+                 dilation: int = 1, use_bn: bool = True,
+                 kernel_init: WeightInit = init_kaiming_leaky(0.1),
+                 bias_init: BiasInit = bias_zeros,
+                 generator: Optional[torch.Generator] = None):
+        layers = [torch_conv(in_ch, out_ch, kernel_size, stride, padding,
+                             dilation, use_bias=not use_bn,
+                             kernel_init=kernel_init, bias_init=bias_init,
+                             generator=generator)]
+        if use_bn:
+            layers.append(batch_norm(out_ch))
+        layers.append(nn.LeakyReLU(0.1))
+        super().__init__(*layers)
+
+
+class IConvBlock(nn.Sequential):
+    """conv [+ BN], no activation (flownet2 ``i_conv``); the conv keeps its
+    bias even in front of BN, as the reference does."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, use_bn: bool = True,
+                 kernel_init: WeightInit = init_xavier_uniform(),
+                 bias_init: BiasInit = bias_uniform01,
+                 generator: Optional[torch.Generator] = None):
+        layers = [torch_conv(in_ch, out_ch, kernel_size, stride, use_bias=True,
+                             kernel_init=kernel_init, bias_init=bias_init,
+                             generator=generator)]
+        if use_bn:
+            layers.append(batch_norm(out_ch))
+        super().__init__(*layers)
+
+
+class Deconv(nn.Sequential):
+    """ConvTranspose(4, 2, 1) + LeakyReLU(0.1)."""
+
+    def __init__(self, in_ch: int, out_ch: int, use_bias: bool = False,
+                 kernel_init: WeightInit = init_kaiming_leaky(0.1),
+                 bias_init: BiasInit = bias_zeros,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(
+            TorchConvTranspose(in_ch, out_ch, use_bias=use_bias,
+                               kernel_init=kernel_init, bias_init=bias_init,
+                               generator=generator),
+            nn.LeakyReLU(0.1),
+        )
