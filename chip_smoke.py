@@ -4,17 +4,29 @@
 
 1. the card (nvidia-smi name and power limit), versions and TF32 flags;
 2. build the CUDA kernels from ``tpureg_torch/csrc`` and show ptxas's report;
-3. K1 (correlation) against its plain version at FlowNetC's shape, fp32 and
-   bf16, and at PWC's (4, 1);
-4. K3 (bilinear warp) against its plain version at 256², B=8, fp32 and bf16;
-5. the main path: a seeded, full-width FlowNet2 registration head runs the
+3. K1 (correlation) and K2 (its backward) against their plain versions at
+   FlowNetC's shape, fp32 and bf16, at PWC's (4, 1) and at a ragged shape;
+4. K3 (bilinear warp), K4 (warp with position-derivative bases) and K5
+   (the warp's image cotangent) against their plain versions at 256², B=8,
+   on smooth and scattered positions, fp32 and bf16, and with C > 1;
+5. the eval path: a seeded, full-width FlowNet2 registration head runs the
    eval step at 256², batch 8, with segmentations, in fp32 and bf16; the
    launch counters must show 1 K1 and 7 K3 launches per step; batch 1 is
    held against the same weights on the CPU through the plain versions;
-6. the inference CLI on phantom Analyze volumes, on the card;
-7. timings with CUDA events: each kernel and its plain version, the
-   ``grid_sample`` yardstick for K3, the eval step at batch 8, peak memory;
-8. a torch.profiler breakdown of one eval step by kernel group.
+6. the inference CLI (``--mode real``) on phantom Analyze volumes;
+7. the train path: the FlowNet2 train step at 256², batch 8, in fp32 (no
+   TF32) and bf16; the counters must show 1 K1, 1 K2 and 6 K4 launches per
+   step and no K3 or K5; the loss falls over 5 steps on one batch; at batch
+   1 the card's fp32 gradients are held against the CPU's plain path,
+   both measured against the CPU's fp64 gradient;
+8. the training CLI on 10 phantom volumes: one epoch, a resume with
+   ``--cp 1`` that skips it, and the inference CLI in ``--mode synthetic``
+   on the best weights it saved;
+9. timings with CUDA events: each kernel and its plain version, the
+   library yardsticks (``grid_sample`` for K3, ``grid_sampler_2d_backward``
+   for K4 and K5), the eval and train steps at batch 8, peak memory;
+10. a torch.profiler breakdown of one eval and one train step by kernel
+    group, with the device's idle share.
 
 The line before the last is the kernel table as JSON, the one before it the
 card; the last line is ``{"ok": true, "device": {...}}``. Any failed phase
@@ -24,7 +36,9 @@ Needs one CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import statistics
@@ -39,16 +53,28 @@ import torch
 import torch.nn.functional as F
 
 from tpureg_torch.cli import inference as cli_inference
+from tpureg_torch.cli import train as cli_train
 from tpureg_torch.ops import cuda_lib
 from tpureg_torch.ops.correlation import (
+    correlation_bwd_cuda,
+    correlation_bwd_reference,
     correlation_cuda,
     correlation_reference,
     displacement_count,
 )
-from tpureg_torch.ops.warp import sample2d_cuda, sample2d_gather
+from tpureg_torch.ops.warp import (
+    sample2d_cuda,
+    sample2d_dimg_cuda,
+    sample2d_dimg_reference,
+    sample2d_gather,
+    sample2d_taps_cuda,
+    sample2d_taps_reference,
+)
 from tpureg_torch.reg import OpticalFlowReg
 from tpureg_torch.train import (
+    create_train_state,
     make_eval_step,
+    make_train_step,
     save_best_weights,
     set_fp32_numerics,
 )
@@ -58,7 +84,19 @@ SIZE, BATCH = 256, 8
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 outside the tensor cores
               torch.bfloat16: 989e12}   # bf16 tensor cores, dense
-COUNTERS = (correlation_cuda, sample2d_cuda)
+# each kernel's wrapper and its name in the launch counts
+COUNTERS = {"correlation": correlation_cuda,
+            "correlation_bwd": correlation_bwd_cuda,
+            "warp2d": sample2d_cuda,
+            "warp2d_taps": sample2d_taps_cuda,
+            "warp2d_dimg": sample2d_dimg_cuda}
+EVAL_LAUNCHES = {"correlation": 1, "correlation_bwd": 0, "warp2d": 7,
+                 "warp2d_taps": 0, "warp2d_dimg": 0}
+# FlowNetC's correlation and its backward; K4 for the four warps of the
+# cascade and the head's image and grid warps, whose positions need
+# gradients; every warped image is an input, so no K5
+TRAIN_LAUNCHES = {"correlation": 1, "correlation_bwd": 1, "warp2d": 0,
+                  "warp2d_taps": 6, "warp2d_dimg": 0}
 
 
 def require(cond, msg):
@@ -71,13 +109,12 @@ def phase(title):
 
 
 def reset_counts():
-    for fn in COUNTERS:
+    for fn in COUNTERS.values():
         fn.launches = 0
 
 
 def counts():
-    return {"correlation": correlation_cuda.launches,
-            "warp2d": sample2d_cuda.launches}
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +172,36 @@ def warp_work(img, p):
     b, c, h, w = img.shape
     nbytes = img.numel() * img.element_size() + 2 * b * p * 4 + b * c * p * 4
     return nbytes, b * p * (8 + 7 * c)
+
+
+def correlation_bwd_work(shape, md, s2, dtype, gdtype):
+    """(bytes, flops) of K2's function: f1, f2 and g read once, df1 and df2
+    written once; one multiply-add per in-image tap for each cotangent."""
+    b, c, h, w = shape
+    k = displacement_count(md, s2)
+    _, fwd_flops = correlation_work(shape, md, s2, dtype)
+    es, gs = torch.finfo(dtype).bits // 8, torch.finfo(gdtype).bits // 8
+    nbytes = 4 * b * c * h * w * es + b * k * k * h * w * gs
+    return nbytes, 2 * fwd_flops
+
+
+def warp_taps_work(img, p):
+    """(bytes, flops) of K4's function: the image and positions read once,
+    the sample and two bases written once in fp32; 8 FLOP of weights per
+    position and 17 per channel (7 for the sample, 5 for each base)."""
+    b, c, h, w = img.shape
+    nbytes = img.numel() * img.element_size() + 2 * b * p * 4 + 3 * b * c * p * 4
+    return nbytes, b * p * (8 + 17 * c)
+
+
+def warp_dimg_work(shape, p, dtype):
+    """(bytes, flops) of K5's function: positions and the fp32 cotangent
+    read once, the image cotangent written once in ``dtype``; 8 FLOP of
+    weights per position and 4 products and 4 sums per channel."""
+    b, c, h, w = shape
+    es = torch.finfo(dtype).bits // 8
+    nbytes = 2 * b * p * 4 + b * c * p * 4 + b * c * h * w * es
+    return nbytes, b * p * (8 + 8 * c)
 
 
 # ---------------------------------------------------------------------------
@@ -240,14 +307,57 @@ def check_correlation():
     return errs
 
 
-def warp_inputs(dtype, seed=1):
+def check_correlation_bwd():
+    phase("3b. K2 correlation backward against its plain version")
+    errs = {}
+    g = torch.Generator(device=DEV).manual_seed(6)
+    cases = (((BATCH, 256, 32, 32), 20, 2),   # FlowNetC at 256²
+             ((BATCH, 64, 32, 32), 4, 1),     # PWC's configuration
+             ((1, 40, 9, 37), 20, 2))         # ragged column tile and channels
+    for shape, md, s2 in cases:
+        k = displacement_count(md, s2)
+        f1 = torch.randn(shape, device=DEV, generator=g)
+        f2 = torch.randn(shape, device=DEV, generator=g)
+        grad = torch.randn((shape[0], k * k, *shape[2:]), device=DEV, generator=g)
+        for dtype, gdtype in ((torch.float32, torch.float32),
+                              (torch.bfloat16, torch.bfloat16),
+                              (torch.bfloat16, torch.float32)):
+            a, b, gr = f1.to(dtype), f2.to(dtype), grad.to(gdtype)
+            got = correlation_bwd_cuda(a, b, gr, md, s2)
+            want = correlation_bwd_reference(a, b, gr, md, s2)
+            torch.cuda.synchronize()
+            err, ok = 0.0, True
+            for x, y in zip(got, want):
+                x, y = x.float(), y.float()
+                err = max(err, float((x - y).abs().max()))
+                if dtype == torch.float32:
+                    # fp32 sums of up to K² products, over C, in another order
+                    tol = "1e-5 abs + 1e-5 rel"
+                    ok &= bool(((x - y).abs() <= 1e-5 + 1e-5 * y.abs()).all())
+                else:
+                    # one bf16 rounding of fp32 sums taken in another order
+                    tol = "2^-7 rel + 1e-5"
+                    ok &= bool(((x - y).abs() <= 2.0**-7 * y.abs() + 1e-5).all())
+            print(f"  {tuple(shape)} md {md} s2 {s2} operands {str(dtype)[6:]}, "
+                  f"g {str(gdtype)[6:]}: max |kernel - plain| = {err:.3g} "
+                  f"(tolerance {tol})")
+            require(ok, f"K2 disagrees with its plain version ({dtype}, md {md})")
+            if shape == cases[0][0] and dtype == gdtype:
+                errs[dtype] = err
+    return errs
+
+
+def warp_inputs(dtype, seed=1, scale=60.0, shape=(BATCH, 1, SIZE, SIZE)):
+    """A random image and positions at the pixel grid plus N(0, scale²)
+    displacements: scattered (and often out of the image) at 60 px, smooth
+    at 0.7 px."""
+    b, c, h, w = shape
     g = torch.Generator(device=DEV).manual_seed(seed)
-    img = torch.rand((BATCH, 1, SIZE, SIZE), device=DEV, generator=g).to(dtype)
-    flow = torch.randn((BATCH, 2, SIZE, SIZE), device=DEV, generator=g) * 60.0
-    base = torch.arange(SIZE, device=DEV, dtype=torch.float32)
-    px = (base + flow[:, 0]).reshape(BATCH, -1).contiguous()
-    py = (base[:, None] + flow[:, 1]).reshape(BATCH, -1).contiguous()
-    return img, px, py
+    img = torch.rand(shape, device=DEV, generator=g).to(dtype)
+    flow = torch.randn((b, 2, h, w), device=DEV, generator=g) * scale
+    px = (torch.arange(w, device=DEV, dtype=torch.float32) + flow[:, 0])
+    py = (torch.arange(h, device=DEV, dtype=torch.float32)[:, None] + flow[:, 1])
+    return img, px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
 
 
 def check_warp():
@@ -268,8 +378,58 @@ def check_warp():
     return errs
 
 
+def check_warp_grads():
+    phase("4b. K4 (warp with bases) and K5 (image cotangent) against their "
+          "plain versions")
+    errs = {"taps": {}, "dimg": {}}
+    cases = (("scattered", 60.0, (BATCH, 1, SIZE, SIZE)),
+             ("smooth", 0.7, (BATCH, 1, SIZE, SIZE)),
+             ("C=3", 20.0, (2, 3, 37, 53)))
+    for label, scale, shape in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            img, px, py = warp_inputs(dtype, seed=7, scale=scale, shape=shape)
+            out, dpx, dpy = sample2d_taps_cuda(img, px, py)
+            k3 = sample2d_cuda(img, px, py)
+            want, wpx, wpy = sample2d_taps_reference(img, px, py)
+            torch.cuda.synchronize()
+            # the sample is K3's and the plain gather's, to the last bit; the
+            # bases are the same differences of tap values, associated
+            # otherwise than autograd's chain: a few fp32 roundings
+            exact = bool(torch.equal(out, k3)) and bool(torch.equal(out, want))
+            base_err = max(float((dpx - wpx).abs().max()), float((dpy - wpy).abs().max()))
+            bases_ok = all(bool(((x - y).abs() <= 1e-6 + 1e-5 * y.abs()).all())
+                           for x, y in ((dpx, wpx), (dpy, wpy)))
+            print(f"  K4 {shape} {label} {str(dtype)[6:]}: sample equal to K3's "
+                  f"and the plain one: {exact}; bases max |kernel - plain| = "
+                  f"{base_err:.3g} (tolerance 1e-6 abs + 1e-5 rel)")
+            require(exact and bases_ok, f"K4 disagrees ({label}, {dtype})")
+
+            b, c, h, w = shape
+            grad = torch.randn((b, c, px.shape[1]), device=DEV,
+                               generator=torch.Generator(device=DEV).manual_seed(8))
+            got = sample2d_dimg_cuda(grad, px, py, shape, dtype).float()
+            ref = sample2d_dimg_reference(grad, px, py, shape, dtype).float()
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if dtype == torch.float32:
+                # fp32 sums of the same products, added by atomics in an
+                # order that changes from run to run
+                tol, ok = "1e-5 abs + 1e-5 rel", bool(
+                    ((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+            else:
+                tol, ok = "2^-7 rel + 1e-5", bool(
+                    ((got - ref).abs() <= 2.0**-7 * ref.abs() + 1e-5).all())
+            print(f"  K5 {shape} {label} {str(dtype)[6:]}: max |kernel - plain| "
+                  f"= {err:.3g} (tolerance {tol})")
+            require(ok, f"K5 disagrees ({label}, {dtype})")
+            if label == "smooth":
+                errs["taps"][dtype] = base_err
+                errs["dimg"][dtype] = err
+    return errs
+
+
 def main_path(model):
-    phase("5. main path: FlowNet2 eval step at 256², batch 8, with segs")
+    phase("5. eval path: FlowNet2 eval step at 256², batch 8, with segs")
     imgs, segs = phantom_batch(BATCH, SIZE, seed=2)
     imgs, segs = imgs.to(DEV), segs.to(DEV)
     launches, steps, results = {}, {}, {}
@@ -284,7 +444,7 @@ def main_path(model):
               f"{float(metrics['loss']):.6g}, photo {float(metrics['photo_loss']):.6g}, "
               f"corr {float(metrics['corr_loss']):.6g}, "
               f"smooth {float(metrics['smooth_loss']):.6g}")
-        require(launches[name] == {"correlation": 1, "warp2d": 7},
+        require(launches[name] == EVAL_LAUNCHES,
                 f"{name} step should launch K1 once and K3 7 times: {launches[name]}")
         require(flows[0].shape == (BATCH, SIZE, SIZE, 2) and len(flows) == 2,
                 "flow shape")
@@ -346,129 +506,363 @@ def run_cli(model):
         torch.cuda.synchronize()
     got = counts()
     print(f"  CLI launches over 4 batches: {got}")
-    require(got == {"correlation": 4, "warp2d": 28}, "CLI launch counts")
+    require(got == {k: 4 * n for k, n in EVAL_LAUNCHES.items()}, "CLI launch counts")
     for k, v in results.items():
         require(np.isfinite(v), f"CLI metric {k} is not finite")
     return results
 
 
-def timings(steps, imgs, segs, flow, errs):
-    phase("7. timings (CUDA events, back-to-back launches queued ahead, warm L2)")
+def bn_fed_bias(name):
+    """The biases of flownet2's i_conv blocks, whose conv feeds a BatchNorm:
+    in train mode the batch mean takes them out again, so their exact
+    gradient is zero and what is computed is rounding noise."""
+    return ".inter_conv" in name and name.endswith(".0.bias")
+
+
+def gradients(model, imgs):
+    """(loss, {name: gradient}) of one train step of ``model`` on ``imgs``,
+    through the public train step with a zero learning rate."""
+    state = create_train_state(model, learning_rate=0.0)
+    metrics = make_train_step(state)(imgs)
+    return float(metrics["loss"]), {n: p.grad.detach().double().cpu()
+                                    for n, p in model.named_parameters()}
+
+
+def train_path():
+    phase("7. train path: FlowNet2 train step at 256², batch 8")
+    imgs, _ = phantom_batch(BATCH, SIZE, seed=6)
+    imgs = imgs.to(DEV)
+    launches, steps = {}, {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        model = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(1))
+        state = create_train_state(model.to(DEV))
+        step = make_train_step(state, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        metrics = step(imgs)
+        torch.cuda.synchronize()
+        launches[name] = counts()
+        print(f"  {name}: launches in one step {launches[name]}")
+        require(launches[name] == TRAIN_LAUNCHES,
+                f"{name} train step should launch {TRAIN_LAUNCHES}")
+        losses = [float(metrics["loss"])]
+        for _ in range(4):
+            losses.append(float(step(imgs)["loss"]))
+        print(f"  {name}: loss over 5 steps on one batch: "
+              + ", ".join(f"{v:.6g}" for v in losses))
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"{name}: the loss is not finite or does not fall")
+        require(state.step == 5 and all(bool(torch.isfinite(p).all())
+                                         for p in model.parameters()),
+                f"{name}: step count or non-finite weights")
+        steps[name] = step
+
+    # batch 1, fp32: the card's gradients against the CPU's plain path.
+    # FlowNet2's gradient at a random initialisation amplifies rounding: on
+    # the CPU at 256², the fp32 gradient lies ~0.08 in relative L2 from the
+    # fp64 one. So both fp32 gradients are held against the CPU's fp64 one,
+    # and the card's may be at most twice as far from it as the CPU's.
+    cpu_model = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(2))
+    card_model = copy.deepcopy(cpu_model).to(DEV)
+    fp64_model = copy.deepcopy(cpu_model).double()
+    t0 = time.time()
+    closs, cgrads = gradients(cpu_model, imgs[:1].cpu())
+    rloss, rgrads = gradients(fp64_model, imgs[:1].cpu().double())
+    print(f"  CPU plain path, batch 1, fp32 and fp64: {time.time() - t0:.1f} s")
+    gloss, ggrads = gradients(card_model, imgs[:1])
+    del cpu_model, card_model, fp64_model
+    rel = abs(gloss / closs - 1)
+    print(f"  batch 1 loss: card {gloss:.7g}, CPU {closs:.7g}, {rel:.3g} relative "
+          f"(tolerance 1e-4); CPU fp64 {rloss:.9g}")
+    require(rel <= 1e-4, "card and CPU train losses disagree")
+    keys = [k for k in rgrads if not bn_fed_bias(k)]
+
+    def spread(grads, ref):
+        """(whole-model relative L2, per-tensor median, worst 2) of grads
+        against ref; a tensor whose gradient is exactly zero on both sides
+        counts as 0."""
+        errs = sorted((float((grads[k] - ref[k]).norm()
+                             / max(float(ref[k].norm()), 1e-30)), k) for k in keys)
+        diff2 = sum(float(((grads[k] - ref[k]) ** 2).sum()) for k in keys)
+        ref2 = sum(float((ref[k] ** 2).sum()) for k in keys)
+        return (diff2 / ref2) ** 0.5, errs[len(errs) // 2][0], errs[-2:]
+
+    card, cpu = spread(ggrads, rgrads), spread(cgrads, rgrads)
+    for label, (whole, median, worst) in (("card fp32", card), ("CPU fp32", cpu),
+                                          ("card vs CPU", spread(ggrads, cgrads))):
+        print(f"  batch 1 gradients, {label}{'' if 'vs' in label else ' vs CPU fp64'}"
+              f", relative L2: whole model {whole:.3g}, per tensor median "
+              f"{median:.3g}, worst {worst}")
+    print("  (tolerance: the card's whole-model and median errors against fp64 "
+          "at most twice the CPU's)")
+    require(card[0] <= 2 * cpu[0] and card[1] <= 2 * cpu[1],
+            "the card's fp32 gradients are further from fp64 than the CPU's allow")
+    for k in rgrads:
+        if bn_fed_bias(k):
+            w = k.replace(".bias", ".weight")
+            require(float(ggrads[k].norm()) <= 1e-5 * float(ggrads[w].norm()),
+                    f"{k}: the gradient of a bias in front of a BatchNorm is not ~0")
+    return launches, steps, imgs
+
+
+def cli_summary(text):
+    """The epoch, checkpoint and summary lines of a CLI's output."""
+    keep = ("EPOCH", "===>", "saving", "loading", "complete", "summary")
+    return [line for line in text.splitlines() if any(k in line for k in keep)]
+
+
+def run_train_cli():
+    phase("8. training CLI on 10 phantom volumes, resume, inference --mode synthetic")
+    rng = np.random.default_rng(9)
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir, seg_dir = os.path.join(tmp, "img"), os.path.join(tmp, "seg")
+        os.mkdir(img_dir)
+        os.mkdir(seg_dir)
+        for i in range(10):
+            img, seg = phantom_volume(rng)
+            write_analyze(os.path.join(img_dir, f"vol{i:02d}_mpr"), img)
+            write_analyze(os.path.join(seg_dir, f"vol{i:02d}_seg"), seg)
+        common = ["--img_dir", img_dir, "--seg_dir", seg_dir, "--batch_size",
+                  str(BATCH), "--workdir", tmp, "--logdir", os.path.join(tmp, "log")]
+        runs = {}
+        for label, extra in (("train", ["--epochs", "1", "--cp", "0"]),
+                             ("resume", ["--epochs", "2", "--cp", "1"])):
+            out = io.StringIO()
+            reset_counts()
+            t0 = time.time()
+            with contextlib.redirect_stdout(out):
+                state = cli_train.main(common + extra, device="cuda")
+            torch.cuda.synchronize()
+            runs[label] = out.getvalue()
+            print(f"  {label} ({' '.join(extra)}): {time.time() - t0:.1f} s, "
+                  f"{state.step} steps in all, launches {counts()}")
+            for line in cli_summary(runs[label]):
+                print(f"    {line}")
+        require("EPOCH 1/1" in runs["train"] and "saving new best weights" in runs["train"],
+                "the first training run did not train or save")
+        require("loading checkpoint state" in runs["resume"]
+                and "EPOCH 1/2" not in runs["resume"] and "EPOCH 2/2" in runs["resume"],
+                "the resume did not skip the finished epoch")
+        require(state.step == 2 * 80, "8 training volumes of 80 slices make 80 steps an epoch")
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            results = cli_inference.main([
+                "--mode", "synthetic", "--model", "flownet2", "--batch_size", "4",
+                "--img_dir", img_dir, "--seg_dir", seg_dir, "--workdir", tmp,
+                "--logdir", os.path.join(tmp, "log"), "--max_samples", "8",
+            ], device="cuda")
+        torch.cuda.synchronize()
+    print(f"  inference --mode synthetic on the best weights, 8 samples: "
+          f"launches {counts()}")
+    for line in cli_summary(out.getvalue()):
+        print(f"    {line}")
+    for k, v in results.items():
+        require(np.isfinite(v), f"CLI metric {k} is not finite")
+
+
+def kernel_row(name, source, replaces, counter, path, err, ms, plain, work,
+               dtype, library):
+    """One entry of the kernel table; ``launches`` is filled in from the
+    counts of ``path`` (the eval or the train step) under ``counter``."""
+    bms, by = bound(*work, dtype)
+    return {"name": name, "route": "cuda", "source": f"tpureg_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": library, "_counter": counter, "_path": path}
+
+
+def step_times(label, call, reps=10, warmup=2):
+    """Median host time of ``call`` (which returns its metrics) to a
+    synchronised card, after ``warmup`` calls."""
+    times = []
+    for i in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = call()
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    print(f"  {label}: median {med:.3f} ms ({med / BATCH:.3f} ms per pair; min "
+          f"{min(times):.3f}, max {max(times):.3f}, {reps} steps after {warmup})")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"    peak memory of one step: {(peak - resident) / 2**30:.3f} GiB "
+          f"allocated above the {resident / 2**30:.3f} GiB resident before it "
+          f"(weights, Adam's state and every other step's model)")
+    return med
+
+
+def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs):
+    phase("9. timings (CUDA events, back-to-back launches queued ahead, warm L2)")
     kernels = []
     g = torch.Generator(device=DEV).manual_seed(4)
     f1 = torch.randn((BATCH, 256, 32, 32), device=DEV, generator=g)
     f2 = torch.randn((BATCH, 256, 32, 32), device=DEV, generator=g)
-    for dtype, name, line in ((torch.float32, "correlation", 54),
-                              (torch.bfloat16, "correlation_bf16", 130)):
-        a, b = f1.to(dtype), f2.to(dtype)
+    k = displacement_count(20, 2)
+    cot = torch.randn((BATCH, k * k, 32, 32), device=DEV, generator=g)
+    for dtype, sfx, line in ((torch.float32, "", 54), (torch.bfloat16, "_bf16", 130)):
+        a, b, gr = f1.to(dtype), f2.to(dtype), cot.to(dtype)
         ms = time_ms(lambda: correlation_cuda(a, b, 20, 2), 50)
         plain = time_ms(lambda: correlation_reference(a, b, 20, 2), 3,
                         head_start_ms=300.0)
-        nbytes, flops = correlation_work(a.shape, 20, 2, dtype)
-        bms, by = bound(nbytes, flops, dtype)
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "tpureg_torch/csrc/correlation.cu",
-                        "replaces": f"tpureg/ops/correlation_pallas.py:{line}",
-                        "launches": None, "max_abs_err": errs["corr"][dtype],
-                        "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                        "bound_by": by, "library_ms": None})
-    # K3 at the positions of the main path: the head's stn warp of the moving
-    # image by the fp32 step's fused flow, (x + u) * (W - 1) / W
+        kernels.append(kernel_row(
+            "correlation" + sfx, "correlation.cu",
+            f"tpureg/ops/correlation_pallas.py:{line}", "correlation", "eval",
+            errs["corr"][dtype], ms, plain,
+            correlation_work(a.shape, 20, 2, dtype), dtype, None))
+        # K2 on the cotangent of the train step's dtype
+        ms = time_ms(lambda: correlation_bwd_cuda(a, b, gr, 20, 2), 50)
+        plain = time_ms(lambda: correlation_bwd_reference(a, b, gr, 20, 2), 3,
+                        head_start_ms=300.0)
+        kernels.append(kernel_row(
+            "correlation_bwd" + sfx, "correlation_bwd.cu",
+            "tpureg/ops/correlation_pallas.py:335", "correlation_bwd", "train",
+            errs["corr_bwd"][dtype], ms, plain,
+            correlation_bwd_work(a.shape, 20, 2, dtype, dtype), dtype, None))
+
+    # the warps at the positions of the eval path: the head's stn warp of the
+    # moving image by the fp32 step's fused flow, (x + u) * (W - 1) / W
     base = torch.arange(SIZE, device=DEV, dtype=torch.float32)
     px = ((base + flow[..., 0]) * ((SIZE - 1) / SIZE)).reshape(BATCH, -1).contiguous()
     py = ((base[:, None] + flow[..., 1]) * ((SIZE - 1) / SIZE)).reshape(
         BATCH, -1).contiguous()
+    p = px.shape[1]
     moving = imgs[..., 1][:, None].contiguous()
-    for dtype, name in ((torch.float32, "warp2d"), (torch.bfloat16, "warp2d_bf16")):
+    shape = tuple(moving.shape)
+    # grid_sample's grid for the same positions, align_corners=True:
+    # x_norm = 2 x / (W - 1) - 1
+    grid = torch.stack([px * (2 / (SIZE - 1)) - 1, py * (2 / (SIZE - 1)) - 1],
+                       -1).reshape(BATCH, SIZE, SIZE, 2)
+    cot = torch.randn((BATCH, 1, p), device=DEV, generator=g)
+    cot_img = cot.reshape(shape)
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         img = moving.to(dtype)
         ms = time_ms(lambda: sample2d_cuda(img, px, py), 200)
-        plain = time_ms(lambda: sample2d_gather(img, px, py), 20,
-                        head_start_ms=100.0)
+        plain = time_ms(lambda: sample2d_gather(img, px, py), 20, head_start_ms=100.0)
         # and at the scattered out-of-image positions of phase 4
         rimg, rpx, rpy = warp_inputs(dtype, seed=5)
         scattered = time_ms(lambda: sample2d_cuda(rimg, rpx, rpy), 200)
-        print(f"  {name}: kernel at scattered positions (flow std 60 px): "
+        print(f"  warp2d{sfx}: kernel at scattered positions (flow std 60 px): "
               f"{scattered * 1e3:.2f} us")
-        library = None
+        lib = lib_taps = lib_dimg = None
         if dtype == torch.float32:
-            # grid_sample on the same positions, normalised for
-            # align_corners=True: x_norm = 2 x / (W - 1) - 1
-            grid = torch.stack([px * (2 / (SIZE - 1)) - 1, py * (2 / (SIZE - 1)) - 1],
-                               -1).reshape(BATCH, SIZE, SIZE, 2)
             ref = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                                 align_corners=True).reshape(BATCH, 1, -1)
-            yard_err = float((ref - sample2d_cuda(img, px, py)).abs().max())
-            print(f"  grid_sample yardstick agrees with K3 to {yard_err:.3g}")
-            library = time_ms(lambda: F.grid_sample(
+            print(f"  grid_sample yardstick agrees with K3 to "
+                  f"{float((ref - sample2d_cuda(img, px, py)).abs().max()):.3g}")
+            lib = time_ms(lambda: F.grid_sample(
                 img, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True), 200)
-        nbytes, flops = warp_work(img, px.shape[1])
-        bms, by = bound(nbytes, flops, torch.float32)
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "tpureg_torch/csrc/warp2d.cu",
-                        "replaces": "tpureg/ops/warp_pallas.py:183",
-                        "launches": None, "max_abs_err": errs["warp"][dtype],
-                        "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                        "bound_by": by, "library_ms": library})
-    for k in kernels:
-        lib = "n/a" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.2f} us"
-        print(f"  {k['name']:17s} kernel {k['ms'] * 1e3:8.2f} us  plain "
-              f"{k['plain_ms'] * 1e3:9.2f} us  bound {k['bound_ms'] * 1e3:6.2f} us "
-              f"({k['bound_by']})  library {lib}")
+            # grid_sampler_2d_backward: d/dgrid for K4, d/dinput for K5
+            dimg_lib, dgrid_lib = torch.ops.aten.grid_sampler_2d_backward(
+                cot_img, img, grid, 0, 0, True, [True, True])
+            _, dpx, _ = sample2d_taps_cuda(img, px, py)
+            dx = (cot * dpx).reshape(BATCH, SIZE, SIZE) * ((SIZE - 1) / 2)
+            print(f"  grid_sampler_2d_backward yardsticks agree with K4·g to "
+                  f"{float((dgrid_lib[..., 0] - dx).abs().max()):.3g} (of "
+                  f"{float(dx.abs().max()):.3g}) and with K5 to "
+                  f"{float((dimg_lib - sample2d_dimg_cuda(cot, px, py, shape)).abs().max()):.3g}")
+            lib_taps = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                cot_img, img, grid, 0, 0, True, [False, True]), 200)
+            lib_dimg = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                cot_img, img, grid, 0, 0, True, [True, False]), 200)
+        else:
+            # grid_sample takes its grid in the image's dtype: a bf16 grid
+            # rounds the positions to 8 bits (up to 1 px at 256²), which is
+            # another function, so the bf16 rows have no yardstick
+            gb = grid.to(dtype)
+            t = time_ms(lambda: F.grid_sample(img, gb, mode="bilinear",
+                                              padding_mode="zeros",
+                                              align_corners=True), 200)
+            print(f"  grid_sample with a bf16 grid (positions rounded to bf16, "
+                  f"not K3's function): {t * 1e3:.2f} us")
+        kernels.append(kernel_row(
+            "warp2d" + sfx, "warp2d.cu", "tpureg/ops/warp_pallas.py:183", "warp2d",
+            "eval", errs["warp"][dtype], ms, plain, warp_work(img, p),
+            torch.float32, lib))
+        ms = time_ms(lambda: sample2d_taps_cuda(img, px, py), 200)
+        plain = time_ms(lambda: sample2d_taps_reference(img, px, py), 10,
+                        head_start_ms=100.0)
+        kernels.append(kernel_row(
+            "warp2d_taps" + sfx, "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:197",
+            "warp2d_taps", "train", errs["taps"][dtype], ms, plain,
+            warp_taps_work(img, p), torch.float32, lib_taps))
+        ms = time_ms(lambda: sample2d_dimg_cuda(cot, px, py, shape, dtype), 200)
+        plain = time_ms(lambda: sample2d_dimg_reference(cot, px, py, shape, dtype),
+                        10, head_start_ms=100.0)
+        kernels.append(kernel_row(
+            "warp2d_dimg" + sfx, "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:230",
+            "warp2d_dimg", "train", errs["dimg"][dtype], ms, plain,
+            warp_dimg_work(shape, p, dtype), torch.float32, lib_dimg))
+    for row in kernels:
+        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
+        print(f"  {row['name']:20s} kernel {row['ms'] * 1e3:8.2f} us  plain "
+              f"{row['plain_ms'] * 1e3:9.2f} us  bound {row['bound_ms'] * 1e3:6.2f} us "
+              f"({row['bound_by']})  library {lib}")
 
-    for name, step in steps.items():
-        times = []
-        for i in range(12):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, metrics = step(imgs, segs)
-            float(metrics["loss"])
-            torch.cuda.synchronize()
-            if i >= 2:
-                times.append((time.perf_counter() - t0) * 1e3)
-        med = statistics.median(times)
-        print(f"  eval step {name}, batch {BATCH} at 256² with segs: median "
-              f"{med:.3f} ms ({med / BATCH:.3f} ms per pair; min {min(times):.3f}, "
-              f"max {max(times):.3f}, 10 steps)")
-    torch.cuda.reset_peak_memory_stats()
-    steps["fp32"](imgs, segs)
-    torch.cuda.synchronize()
-    print(f"  peak memory of the fp32 step: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (allocated)")
+    for name, step in eval_steps.items():
+        step_times(f"eval step {name}, batch {BATCH} at 256² with segs",
+                   lambda: step(imgs, segs)[1])
+    for name, step in train_steps.items():
+        step_times(f"train step {name}, batch {BATCH} at 256²",
+                   lambda: step(train_imgs))
     return kernels
 
 
 def _kernel_group(name):
-    if "corr_fwd_kernel" in name:
-        return "K1 correlation"
-    if "warp2d_fwd_kernel" in name:
-        return "K3 warp"
+    groups = (("corr_fwd_kernel", "K1 correlation"),
+              ("corr_bwd_kernel", "K2 correlation backward"),
+              ("warp2d_fwd_kernel", "K3 warp"),
+              ("warp2d_taps_kernel", "K4 warp with bases"),
+              ("warp2d_dimg_kernel", "K5 warp image cotangent"))
+    for key, group in groups:
+        if key in name:
+            return group
     low = name.lower()
-    if any(t in low for t in ("conv", "cudnn", "xmma", "gemm", "dgrad", "wgrad",
-                              "fprop", "fft", "dse::", "nchwtonhwc",
-                              "nhwctonchw", "tensortransform", "cutlass")):
-        return "cuDNN (convolutions, FFTs, layout transforms)"
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "Adam (multi-tensor kernels)"
+    if any(t in low for t in ("dgrad", "wgrad", "bprop", "bwd_filter", "bwd_data")):
+        return "cuDNN dgrad, wgrad (backward; deconv forward)"
+    if any(t in low for t in ("conv", "cudnn", "xmma", "gemm", "fprop", "fft",
+                              "dse::", "nchwtonhwc", "nhwctonchw",
+                              "tensortransform", "cutlass")):
+        return "cuDNN forward, other products, layout transforms"
+    if "batch_norm" in low:
+        return "BatchNorm (forward and backward)"
     if "memcpy" in low or "memset" in low:
         return "memcpy/memset"
+    if "backward" in low:
+        return "other backward (elementwise, resize)"
     return "other (elementwise, resize, reductions)"
 
 
-def breakdown(steps, imgs, segs):
-    phase("8. where the eval step's time goes (torch.profiler, one step each)")
+def breakdown(label, steps, args):
+    """Device time of one step of each of ``steps`` by kernel group, and
+    the device's idle share of the profiled step."""
     from torch.profiler import ProfilerActivity, profile
 
     for name, step in steps.items():
-        step(imgs, segs)
+        step(*args)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             t0 = time.perf_counter()
-            step(imgs, segs)
+            step(*args)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         groups, per_kernel, launches = {}, {}, 0
         for evt in prof.events():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
+            # (a user annotation, such as Optimizer.step#Adam.step, spans
+            # kernels that are counted on their own)
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or evt.is_user_annotation):
                 continue
             ms = evt.device_time_total / 1e3
             launches += 1
@@ -476,12 +870,13 @@ def breakdown(steps, imgs, segs):
             per_kernel[evt.name] = per_kernel.get(evt.name, 0) + ms
         busy = sum(groups.values())
         if not launches:
-            print(f"  {name}: the profiler recorded no device time (not measured)")
+            print(f"  {label} {name}: the profiler recorded no device time "
+                  "(not measured)")
             continue
-        print(f"  {name}: {launches} device kernels, busy {busy:.3f} ms of a "
-              f"{wall:.3f} ms profiled step ({100 * (1 - busy / wall):.1f}% idle)")
+        print(f"  {label} {name}: {launches} device kernels, busy {busy:.3f} ms of "
+              f"a {wall:.3f} ms profiled step ({100 * (1 - busy / wall):.1f}% idle)")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"    {g:40s} {ms:8.3f} ms  {100 * ms / busy:5.1f}%")
+            print(f"    {g:48s} {ms:8.3f} ms  {100 * ms / busy:5.1f}%")
         for k, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
             print(f"      {ms:8.3f} ms  {k[:100]}")
 
@@ -490,22 +885,42 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA card found")
     t_start = time.time()
+    marks = []
+
+    def mark(label):
+        marks.append((label, time.time()))
+        print(f"  [{label} done at {marks[-1][1] - t_start:.1f} s]", flush=True)
+
     smi = card()
     build()
-    errs = {"corr": check_correlation(), "warp": check_warp()}
+    mark("build")
+    errs = {"corr": check_correlation(), "corr_bwd": check_correlation_bwd(),
+            "warp": check_warp(), **check_warp_grads()}
+    mark("kernel checks")
 
     model = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
     model.to(DEV)
     print(f"\nFlowNet2 registration head: {n_params / 1e6:.2f} M parameters, "
           f"seeded random weights")
-    launches, steps, imgs, segs, flow = main_path(model)
+    eval_launches, eval_steps, imgs, segs, flow = main_path(model)
+    mark("eval path")
     run_cli(model)
-    kernels = timings(steps, imgs, segs, flow, errs)
-    breakdown(steps, imgs, segs)
-    for k in kernels:
-        k["launches"] = launches["bf16" if k["name"].endswith("_bf16") else "fp32"][
-            "correlation" if k["name"].startswith("correlation") else "warp2d"]
+    mark("inference CLI")
+    train_launches, train_steps, train_imgs = train_path()
+    mark("train path")
+    run_train_cli()
+    mark("training CLI")
+    kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs)
+    mark("timings")
+    phase("10. where the steps' time goes (torch.profiler, one step each)")
+    breakdown("eval step", eval_steps, (imgs, segs))
+    breakdown("train step", train_steps, (train_imgs,))
+    mark("breakdown")
+    launches = {"eval": eval_launches, "train": train_launches}
+    for row in kernels:
+        dtype = "bf16" if row["name"].endswith("_bf16") else "fp32"
+        row["launches"] = launches[row.pop("_path")][dtype][row.pop("_counter")]
     print(f"\nall phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

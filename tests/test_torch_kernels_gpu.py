@@ -9,9 +9,21 @@ installed:  python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 import pytest
 import torch
 
-from tpureg_torch.ops import correlation, correlation_cuda, correlation_reference
-from tpureg_torch.ops import cuda_lib
-from tpureg_torch.ops import sample2d, sample2d_cuda, sample2d_gather
+from tpureg_torch.ops import (
+    correlation,
+    correlation_bwd_cuda,
+    correlation_bwd_reference,
+    correlation_cuda,
+    correlation_reference,
+    cuda_lib,
+    sample2d,
+    sample2d_cuda,
+    sample2d_dimg_cuda,
+    sample2d_dimg_reference,
+    sample2d_gather,
+    sample2d_taps_cuda,
+    sample2d_taps_reference,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -24,11 +36,11 @@ def dev():
     return torch.device("cuda")
 
 
-def _bf16_close(got, want):
+def _bf16_close(got, want, atol=1e-6):
     """Both sides round the same fp32 sums, added in another order, to bf16:
     they may differ by one bf16 step, 2^-8 of the value."""
     got, want = got.float(), want.float()
-    bound = 2.0 ** -7 * want.abs() + 1e-6
+    bound = 2.0 ** -7 * want.abs() + atol
     assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
 
 
@@ -74,10 +86,62 @@ def test_correlation_refuses_what_the_kernel_does_not_take(dev):
         correlation(f.half(), f.half(), 2, 1)
     with pytest.raises(ValueError):
         correlation_cuda(f[:, :, :, ::2], f[:, :, :, ::2], 2, 1)
-    f1 = f.clone().requires_grad_()
-    out = correlation(f1, f, 2, 1)
-    with pytest.raises(NotImplementedError, match="K2"):
-        out.sum().backward()
+    with pytest.raises(ValueError):
+        correlation_bwd_cuda(f, f, torch.zeros((1, 9, 6, 7), device=dev), 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# K2: correlation backward
+
+K2_CASES = [
+    ((8, 256, 32, 32), 20, 2),   # FlowNetC at 256²
+    ((2, 64, 16, 20), 4, 1),     # PWC's configuration
+    ((1, 40, 9, 37), 20, 2),     # ragged column tile and channel chunk
+    ((1, 70, 12, 45), 20, 1),    # K = 41: more shared memory than 48 KB
+]
+
+
+@pytest.mark.parametrize("shape,md,s2", K2_CASES)
+def test_correlation_backward_fp32_matches_plain(dev, shape, md, s2):
+    g = torch.Generator(device=dev).manual_seed(5)
+    f1 = torch.randn(shape, device=dev, generator=g)
+    f2 = torch.randn(shape, device=dev, generator=g)
+    k = 2 * (md // s2) + 1
+    grad = torch.randn((shape[0], k * k, *shape[2:]), device=dev, generator=g)
+    got = correlation_bwd_cuda(f1, f2, grad, md, s2)
+    want = correlation_bwd_reference(f1, f2, grad, md, s2)
+    torch.cuda.synchronize()
+    # fp32 sums of up to K² unit products in another order, over C
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
+def test_correlation_backward_bf16_matches_plain(dev, gdtype):
+    g = torch.Generator(device=dev).manual_seed(6)
+    f1 = torch.randn((8, 256, 32, 32), device=dev, generator=g).bfloat16()
+    f2 = torch.randn((8, 256, 32, 32), device=dev, generator=g).bfloat16()
+    grad = torch.randn((8, 441, 32, 32), device=dev, generator=g).to(gdtype)
+    got = correlation_bwd_cuda(f1, f2, grad, 20, 2)
+    want = correlation_bwd_reference(f1, f2, grad, 20, 2)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        # one bf16 rounding of fp32 sums taken in another order (whose own
+        # difference reaches ~1e-6 on sums of 441 unit products)
+        _bf16_close(a, b, atol=1e-5)
+
+
+def test_correlation_autograd_runs_k2(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    f1 = torch.randn((2, 16, 8, 8), device=dev, generator=g).requires_grad_()
+    f2 = torch.randn((2, 16, 8, 8), device=dev, generator=g).requires_grad_()
+    before = correlation_bwd_cuda.launches
+    out = correlation(f1, f2, 2, 1)
+    (out * out).sum().backward()
+    assert correlation_bwd_cuda.launches == before + 1
+    want = correlation_bwd_reference(f1.detach(), f2.detach(), 2 * out.detach(), 2, 1)
+    torch.testing.assert_close(f1.grad, want[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(f2.grad, want[1], atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +188,72 @@ def test_warp_dispatch_launches_kernel_and_casts(dev):
     assert out.dtype == torch.bfloat16 and out.shape == (2, 1, 5, 5)
     with pytest.raises(TypeError):
         sample2d(img.half(), px, px)
-    px_g = px.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="K4"):
-        sample2d(img.float(), px_g, px).sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# K4: warp forward with position-derivative bases; K5: the image cotangent
+
+WARP_GRAD_CASES = [((8, 1, 256, 256), 60.0), ((8, 1, 256, 256), 0.7),
+                   ((2, 3, 37, 53), 20.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,scale", WARP_GRAD_CASES)
+def test_warp_taps_matches_k3_and_plain(dev, dtype, shape, scale):
+    b, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(8)
+    img = torch.rand(shape, device=dev, generator=g).to(dtype)
+    px, py = _positions(dev, b, h, w, scale=scale, seed=9)
+    out, dpx, dpy = sample2d_taps_cuda(img, px, py)
+    # the sample is K3's, to the last bit
+    torch.testing.assert_close(out, sample2d_cuda(img, px, py), atol=0, rtol=0)
+    want, wpx, wpy = sample2d_taps_reference(img, px, py)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    # the bases are the same differences of tap values, associated otherwise
+    # than autograd's chain (and contracted to fused multiply-adds): a few
+    # fp32 roundings of values of order 1
+    torch.testing.assert_close(dpx, wpx, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(dpy, wpy, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,scale", WARP_GRAD_CASES)
+def test_warp_dimg_matches_plain(dev, dtype, shape, scale):
+    b, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(10)
+    px, py = _positions(dev, b, h, w, scale=scale, seed=11)
+    grad = torch.randn((b, c, h * w), device=dev, generator=g)
+    got = sample2d_dimg_cuda(grad, px, py, shape, dtype)
+    want = sample2d_dimg_reference(grad, px, py, shape, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        # fp32 sums of the same products, added by atomics in an order that
+        # changes from run to run: a few roundings of sums of order 1-10
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(got, want, atol=1e-5)
+
+
+def test_warp_autograd_runs_k4_and_k5(dev):
+    g = torch.Generator(device=dev).manual_seed(12)
+    img = torch.rand((2, 3, 16, 24), device=dev, generator=g).requires_grad_()
+    flow = (torch.randn((2, 2, 16, 24), device=dev, generator=g) * 3
+            ).requires_grad_()
+    px = torch.arange(24, device=dev, dtype=torch.float32) + flow[:, 0]
+    py = torch.arange(16, device=dev, dtype=torch.float32)[:, None] + flow[:, 1]
+    counts = (sample2d_cuda.launches, sample2d_taps_cuda.launches,
+              sample2d_dimg_cuda.launches)
+    out = sample2d(img, px, py)
+    (out.sin()).sum().backward()
+    assert (sample2d_cuda.launches, sample2d_taps_cuda.launches,
+            sample2d_dimg_cuda.launches) == (counts[0], counts[1] + 1,
+                                             counts[2] + 1)
+    img2 = img.detach().requires_grad_()
+    flow2 = flow.detach().requires_grad_()
+    px2 = torch.arange(24, device=dev, dtype=torch.float32) + flow2[:, 0]
+    py2 = torch.arange(16, device=dev, dtype=torch.float32)[:, None] + flow2[:, 1]
+    sample2d_gather(img2, px2, py2).sin().sum().backward()
+    torch.testing.assert_close(img.grad, img2.grad, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(flow.grad, flow2.grad, atol=1e-5, rtol=1e-5)

@@ -3,13 +3,14 @@ inference.py).
 
 Loads the best-validation weights (``train/checkpoint.py``), runs the
 registration head and its loss over real inter-subject pairs
-(``--mode real``) and computes the per-sample metric suite: Dice, MSE, PSNR,
+(``--mode real``) or elastic pairs of evaluation strength made from
+``--img_dir``/``--seg_dir`` (``--mode synthetic``) and computes the
+per-sample metric suite: Dice, MSE, PSNR,
 SSIM (image and seg), modified Hausdorff, MI, Pearson correlation, the flow
 magnitude and the Jacobian statistics. It prints tpureg's per-batch line and
 ``EVAL summary``. Runs on the card unless ``device="cpu"`` is passed.
 
-Not yet ported: ``--mode synthetic`` (elastic pairs, with the training
-slice) and the TensorBoard panels; ``--logdir`` is accepted for flag
+Not yet ported: the TensorBoard panels; ``--logdir`` is accepted for flag
 compatibility and nothing is written there yet.
 """
 
@@ -21,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from ..data import real_pairs_dataset
+from ..data import eval_random_dataset, real_pairs_dataset
 from ..metrics import (
     CORR,
     MI,
@@ -130,9 +131,6 @@ def build_argparser():
 
 def main(argv=None, device=None):
     args = build_argparser().parse_args(argv)
-    if args.mode != "real":
-        raise NotImplementedError(
-            "--mode synthetic needs the elastic synthesis of the training slice")
     dev = resolve_device(device)
     torch.manual_seed(args.seed)
     np.random.seed(args.seed)
@@ -143,12 +141,18 @@ def main(argv=None, device=None):
     model.to(dev)
     print(f"loaded best weights ({best_metrics})", flush=True)
 
-    loader, length = real_pairs_dataset(
-        args.fiximg_dir, args.fixseg_dir, args.movimg_dir, args.movseg_dir,
-        args.batch_size, device=dev,
-    )
+    if args.mode == "real":
+        loader, length = real_pairs_dataset(
+            args.fiximg_dir, args.fixseg_dir, args.movimg_dir, args.movseg_dir,
+            args.batch_size, device=dev,
+        )
+    else:
+        loader, length = eval_random_dataset(
+            args.img_dir, args.seg_dir, args.batch_size, dev, seed=args.seed)
     if length == 0:
-        raise SystemExit(f"no image/seg pairs found (checked {args.fiximg_dir!r})")
+        raise SystemExit(
+            "no image/seg pairs found (checked "
+            f"{args.fiximg_dir if args.mode == 'real' else args.img_dir!r})")
 
     eval_step = make_eval_step(
         model,

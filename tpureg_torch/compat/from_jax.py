@@ -16,6 +16,11 @@ tpureg in the equivalent-convolution layout (kh, kw, in, out), go back to
 torch's (in, out, kh, kw) with the spatial flip undone; BatchNorm
 scale/bias/mean/var → weight/bias/running_mean/running_var, plus a zero
 ``num_batches_tracked``, so that a strict ``load_state_dict`` succeeds.
+
+``load_adam_state_from_jax`` carries optax's Adam state (``count``, ``mu``,
+``nu``; trees shaped like the parameters) into ``torch.optim.Adam``'s
+(``step``, ``exp_avg``, ``exp_avg_sq``) with the same key mapping and layout
+transposes, so that a training run continues from a tpureg state.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "load_adam_state_from_jax"]
 
 _UPFLOW_RE = re.compile(r"upsampled_flow(\d)_to_(\d)")
 _UPFLOW_FLAX_RE = re.compile(r"^upflow(\d)to(\d)$")
@@ -135,3 +140,31 @@ def state_dict_from_jax(params, batch_stats=None,
                 nbt = key.rsplit(".", 1)[0] + ".num_batches_tracked"
                 out[nbt] = torch.zeros((), dtype=torch.int64)
     return out
+
+
+def load_adam_state_from_jax(optimizer: torch.optim.Optimizer, model, count,
+                             mu, nu, prefix: Tuple[str, ...] = ("predictor",)
+                             ) -> None:
+    """Load optax's Adam state into ``optimizer``, a ``torch.optim.Adam``
+    over ``model.parameters()`` in their order (as ``create_train_state``
+    builds it). ``count`` is the update count; ``mu`` and ``nu`` are the
+    moment trees (nested dicts of numpy arrays) rooted where the parameters
+    are, with the model's parameters under the module path ``prefix``.
+    Raises unless every parameter has both moments."""
+    exp_avg = state_dict_from_jax(mu, None, prefix)
+    exp_avg_sq = state_dict_from_jax(nu, None, prefix)
+    head = ".".join(prefix) + "." if prefix else ""
+    names = [n for n, _ in model.named_parameters()]
+    keys = [n[len(head):] if n.startswith(head) else n for n in names]
+    missing = [n for n, k in zip(names, keys)
+               if k not in exp_avg or k not in exp_avg_sq]
+    extra = sorted(set(exp_avg) - set(keys))
+    if missing or extra:
+        raise ValueError(f"Adam moments do not cover the model: missing "
+                         f"{missing[:5]}, unmatched {extra[:5]}")
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": exp_avg[k],
+                       "exp_avg_sq": exp_avg_sq[k]}
+                   for i, k in enumerate(keys)}
+    optimizer.load_state_dict(sd)

@@ -72,7 +72,9 @@ class FlowNetC(nn.Module):
         c3b = self.conv3(self.conv2(self.conv1(x2)))
 
         corr = correlation(c3a, c3b, self.max_displacement, self.corr_stride)
-        corr = F.leaky_relu(corr, 0.1)
+        # flax's leaky_relu: slope 1 at exactly 0, where every displacement
+        # tap of a pixel falls outside the image (F.leaky_relu takes 0.1)
+        corr = torch.where(corr >= 0, corr, corr * 0.1)
         merged = torch.cat([self.conv_redir(c3a), corr], dim=1)
 
         c3 = self.conv3_1(merged)

@@ -1,4 +1,5 @@
 from .layers import (
+    BatchNorm2d,
     ConvBlock,
     Deconv,
     IConvBlock,
@@ -13,6 +14,7 @@ from .layers import (
 )
 
 __all__ = [
+    "BatchNorm2d",
     "ConvBlock",
     "Deconv",
     "IConvBlock",

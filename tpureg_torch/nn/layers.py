@@ -10,8 +10,9 @@ the counterpart of ``tpureg/nn/layers.py``.
   ``<deconv>.0.*``;
 - ``TorchConvTranspose`` and ``predict_flow``: the bare transposed conv and
   the 3×3 conv to two flow channels;
-- BatchNorm with torch's defaults (eps 1e-5, momentum 0.1, which is flax's
-  momentum 0.9).
+- ``BatchNorm2d``: eps 1e-5, momentum 0.1 (flax's momentum 0.9), whose
+  running variance takes the biased batch variance in training, as flax's
+  does (``nn.BatchNorm2d`` takes the unbiased one).
 
 Initialisation follows the package conventions: kaiming_normal(a=0.1) for
 the Pinard lineage, xavier_uniform weights with U(0, 1) biases for NVIDIA's
@@ -26,6 +27,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
@@ -36,6 +38,7 @@ __all__ = [
     "torch_conv",
     "predict_flow",
     "batch_norm",
+    "BatchNorm2d",
     "init_kaiming_leaky",
     "init_xavier_uniform",
     "bias_uniform01",
@@ -126,9 +129,47 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         _init_(self, kernel_init, bias_init, generator)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    """torch-default BatchNorm: eps 1e-5, momentum 0.1 (flax momentum 0.9)."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm`` over NCHW, with torch's parameter and buffer
+    names (so state dicts keep their keys).
+
+    Training normalises by the batch's mean and biased variance, as
+    ``nn.BatchNorm2d`` does, but the running statistics are updated as flax
+    updates them: ``running = (1 - momentum) · running + momentum · batch``
+    with the **biased** batch variance, both taken in fp32 whatever the
+    activation dtype. The variance is taken in two passes, E[(x − E[x])²]:
+    flax's one-pass E[x²] − E[x]² cancels in fp32 behind the U(0, 1) biases
+    of flownet2's i_conv blocks. Evaluation normalises by the running
+    statistics. The output has the input's dtype; the scale, shift and
+    statistics stay fp32.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        if x.numel() == x.shape[1]:
+            # one value per channel, which F.batch_norm refuses: flax's
+            # normalisation gives the shift (x - mean = 0)
+            xf = x.float()
+            y = (xf - xf) * self.weight[:, None, None] + self.bias[:, None, None]
+            y = y.to(x.dtype)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias,
+                             training=True, momentum=0.0, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3),
+                                       correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean * self.momentum)
+            self.running_var.mul_(keep).add_(var * self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    """BatchNorm with flax's running statistics: eps 1e-5, momentum 0.1
+    (flax momentum 0.9)."""
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class ConvBlock(nn.Sequential):

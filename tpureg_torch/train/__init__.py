@@ -1,19 +1,36 @@
-from .checkpoint import best_weight_path, load_best_weights, save_best_weights
+from .checkpoint import (
+    best_weight_path,
+    load_best_weights,
+    restore_training_state,
+    save_best_weights,
+    save_training_state,
+    training_state_path,
+)
+from .schedule import step_decay_schedule
+from .state import TrainState, create_train_state
 from .steps import (
-    cast_floats,
+    cast_params,
     default_loss_kwargs,
     loss_from_outputs,
     make_eval_step,
+    make_train_step,
     set_fp32_numerics,
 )
 
 __all__ = [
     "best_weight_path",
     "load_best_weights",
+    "restore_training_state",
     "save_best_weights",
-    "cast_floats",
+    "save_training_state",
+    "training_state_path",
+    "step_decay_schedule",
+    "TrainState",
+    "create_train_state",
+    "cast_params",
     "default_loss_kwargs",
     "loss_from_outputs",
     "make_eval_step",
+    "make_train_step",
     "set_fp32_numerics",
 ]

@@ -1,28 +1,35 @@
-"""Evaluation step: model forward + multi-scale loss. Counterpart of
-``default_loss_kwargs``, ``loss_from_outputs`` and ``make_eval_step`` in
-``tpureg/train/steps.py``; the training step comes with the training slice.
+"""Train and eval steps: model forward + multi-scale loss [+ Adam update].
+Counterpart of ``default_loss_kwargs``, ``loss_from_outputs``,
+``make_train_step`` and ``make_eval_step`` in ``tpureg/train/steps.py``.
 
 The loss is always evaluated in fp32. With ``compute_dtype=torch.bfloat16``
-the model's parameters and the images are cast to bf16, while BatchNorm keeps
-its running statistics in fp32 and normalises in fp32 before returning the
+the model's parameters and the images are cast to bf16 on every call and the
+step runs through ``torch.func.functional_call``, so gradients reach the
+fp32 master weights through the cast; BatchNorm keeps its running statistics
+and its scale and shift in fp32 and normalises in fp32 before returning the
 activation dtype, as tpureg's bf16 step does (``_cast_floats`` and
-nn/layers.py:219-234 there). The fp32 step turns TF32 off for convolutions
-and matrix products, which would otherwise keep about three decimal digits.
+nn/layers.py:219-242 there). This is not ``torch.autocast``, which would
+keep other ops in fp32 than tpureg does. The fp32 steps turn TF32 off for
+convolutions and matrix products, which would otherwise keep about three
+decimal digits.
+
+Each call sets the model's mode: the train step puts it in train mode
+(batch statistics, running-stat updates), the eval step in eval mode.
 """
 
 from __future__ import annotations
 
-import copy
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from ..losses import OFEloss
-from ..reg.head import outputs_to_nhwc
 
-__all__ = ["default_loss_kwargs", "loss_from_outputs", "cast_floats",
-           "make_eval_step", "set_fp32_numerics"]
+__all__ = ["default_loss_kwargs", "loss_from_outputs", "cast_params",
+           "make_train_step", "make_eval_step", "set_fp32_numerics"]
+
+_TERMS = ("loss", "photo_loss", "corr_loss", "smooth_loss")
 
 
 def default_loss_kwargs(model_name: str) -> Optional[dict]:
@@ -48,21 +55,46 @@ def loss_from_outputs(outputs, imgs, loss_kwargs):
     return OFEloss(flows, warped_imgs, fixed, **loss_kwargs)
 
 
-def cast_floats(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast ``model``'s parameters to ``dtype`` in place. BatchNorm keeps its
-    running statistics and its scale and shift in fp32, the latter rounded
-    through ``dtype``, so that it normalises in fp32 with the cast values."""
-    for m in model.modules():
+def cast_params(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """``model``'s current parameters cast to ``dtype``, by name, for
+    ``torch.func.functional_call``; the casts stay on autograd's tape.
+    BatchNorm's scale and shift are rounded through ``dtype`` and kept fp32,
+    so that it normalises in fp32 with the cast values."""
+    out = {}
+    for prefix, m in model.named_modules():
         bn = isinstance(m, nn.modules.batchnorm._BatchNorm)
-        for p in m.parameters(recurse=False):
-            p.data = p.data.to(dtype).float() if bn else p.data.to(dtype)
-    return model
+        for name, p in m.named_parameters(recurse=False):
+            key = f"{prefix}.{name}" if prefix else name
+            out[key] = p.to(dtype).float() if bn else p.to(dtype)
+    return out
 
 
 def set_fp32_numerics() -> None:
     """Full fp32 for cuDNN convolutions and cuBLAS products (no TF32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _nchw(t):
+    return None if t is None else t.permute(0, 3, 1, 2)
+
+
+def _forward(model, imgs, segs, compute_dtype):
+    """The head on channels-last ``imgs``/``segs`` with the current weights,
+    cast to ``compute_dtype`` when it is given; channels-last outputs."""
+    if compute_dtype is None:
+        return model(imgs, segs)
+    return torch.func.functional_call(
+        model, cast_params(model, compute_dtype), (imgs.to(compute_dtype), segs))
+
+
+def _loss_terms(model, imgs, segs, loss_kwargs, compute_dtype):
+    outputs = _forward(model, imgs, segs, compute_dtype)
+    flows, warped = outputs[0], outputs[1]
+    p, c, s, total = loss_from_outputs(
+        (tuple(_nchw(f) for f in flows), tuple(_nchw(w) for w in warped)),
+        _nchw(imgs), loss_kwargs)
+    return outputs, dict(zip(_TERMS, (total, p, c, s)))
 
 
 def make_eval_step(model, loss_kwargs: Optional[dict] = None,
@@ -73,26 +105,76 @@ def make_eval_step(model, loss_kwargs: Optional[dict] = None,
     ``imgs``/``segs`` are [B, H, W, 2] on the model's device; ``outputs`` are
     the head's outputs in tpureg's channels-last layout and ``metrics`` holds
     0-d fp32 tensors ``loss``, ``photo_loss``, ``corr_loss``,
-    ``smooth_loss``. The model is put in eval mode; under ``compute_dtype``
-    the step runs a cast copy and leaves ``model``'s parameters alone.
+    ``smooth_loss``. Each call puts the model in eval mode and, under
+    ``compute_dtype``, casts the model's current parameters.
     """
     loss_kwargs = loss_kwargs or {}
     if compute_dtype is None:
         set_fp32_numerics()
-        net = model
-    else:
-        net = cast_floats(copy.deepcopy(model), compute_dtype)
-    net.eval()
 
     @torch.inference_mode()
     def eval_step(imgs, segs=None):
-        imgs_n = imgs.permute(0, 3, 1, 2)
-        segs_n = None if segs is None else segs.permute(0, 3, 1, 2)
-        imgs_c = imgs_n if compute_dtype is None else imgs_n.to(compute_dtype)
-        outputs = net.register(imgs_c, segs_n)
-        p, c, s, total = loss_from_outputs(outputs, imgs_n, loss_kwargs)
-        metrics = {"loss": total, "photo_loss": p, "corr_loss": c,
-                   "smooth_loss": s}
-        return outputs_to_nhwc(outputs), metrics
+        model.eval()
+        outputs, metrics = _loss_terms(model, imgs, segs, loss_kwargs,
+                                       compute_dtype)
+        return outputs, metrics
 
     return eval_step
+
+
+def make_train_step(state, loss_kwargs: Optional[dict] = None,
+                    compute_dtype: Optional[torch.dtype] = None,
+                    accum_steps: int = 1, synth: Optional[Callable] = None):
+    """``train_step(imgs) -> metrics`` for a ``TrainState``
+    (``train/state.py``): forward in train mode, multi-scale loss, gradients,
+    one Adam update of the state's optimizer at the scheduled learning rate.
+
+    ``imgs`` is [B, H, W, 2]; ``metrics`` holds detached 0-d fp32 tensors
+    ``loss``, ``photo_loss``, ``corr_loss``, ``smooth_loss``.
+
+    ``accum_steps > 1`` splits the batch into that many microbatches, run in
+    order: each sees the BatchNorm running statistics its predecessor left,
+    the update takes the mean of their gradients and the metrics are
+    microbatch means, as tpureg's ``lax.scan`` form does.
+
+    ``synth``: when given, the step's argument is a spec tuple (e.g.
+    ``SliceDataset.batch_specs()``'s) and ``imgs = synth(*spec)``.
+
+    (tpureg's ``remat`` is not ported; see ROADMAP.md.)
+    """
+    loss_kwargs = loss_kwargs or {}
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if compute_dtype is None:
+        set_fp32_numerics()
+    model = state.model
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(imgs):
+        if synth is not None:
+            imgs = synth(*imgs)
+        b = imgs.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
+        model.train()
+        grads, sums = None, None
+        for mb in imgs.reshape(accum_steps, b // accum_steps, *imgs.shape[1:]):
+            with torch.enable_grad():
+                _, metrics = _loss_terms(model, mb, None, loss_kwargs,
+                                         compute_dtype)
+                g = torch.autograd.grad(metrics["loss"], params)
+            terms = torch.stack([metrics[k].detach() for k in _TERMS])
+            if grads is None:
+                grads, sums = list(g), terms
+            else:
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi)
+                sums = sums + terms
+        for p, g in zip(params, grads):
+            p.grad = g if accum_steps == 1 else g.div_(accum_steps)
+        state.apply_gradients()
+        means = sums / accum_steps
+        return {k: means[i] for i, k in enumerate(_TERMS)}
+
+    return train_step
+
