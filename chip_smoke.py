@@ -9,6 +9,11 @@
 4. K3 (bilinear warp), K4 (warp with position-derivative bases) and K5
    (the warp's image cotangent) against their plain versions at 256², B=8,
    on smooth and scattered positions, fp32 and bf16, and with C > 1;
+4c. K6a (trilinear 3-D warp), K6b (with its three bases) and K6c (its
+   volume cotangent) against their plain versions at the 3-D path's shapes
+   (the final warp, 2 x 1 x 176 x 256 x 256; a composition's 3-channel
+   field, 2 x 3 x 88 x 128 x 128) and at fault C1's (d = 32, dz = ±8.5),
+   fp32 and bf16;
 5. the eval path: a seeded, full-width FlowNet2 registration head runs the
    eval step at 256², batch 8, with segmentations, in fp32 and bf16; the
    launch counters must show 1 K1 and 7 K3 launches per step; batch 1 is
@@ -22,11 +27,24 @@
 8. the training CLI on 10 phantom volumes: one epoch, a resume with
    ``--cp 1`` that skips it, and the inference CLI in ``--mode synthetic``
    on the best weights it saved;
+8b. the 3-D affine path at 176 x 256 x 256, batch 2, fp32 (no TF32): the
+   data synthesis of two phantom heads (one K6a launch) and one AffineNet3D
+   train step (one K6b launch, no K6c); the loss falls over 5 steps; at batch
+   1, on a small volume, the card's gradients are held against the CPU's
+   plain path, both measured against the CPU's fp64 gradient;
+8c. the 3-D deform path: the VoxelMorph3D train step at full width,
+   176 x 256 x 256, batch 2, fp32: 8 K6b launches (7 compositions and the
+   final warp) and 7 K6c launches (the compositions' warped fields); the
+   same loss and gradient checks;
+8d. the 3-D CLI: ``--stage affine`` on 10 phantom Analyze volumes (one K6a
+   launch a batch in the synthesis) and ``--stage deform --synthetic 2``;
 9. timings with CUDA events: each kernel and its plain version, the
-   library yardsticks (``grid_sample`` for K3, ``grid_sampler_2d_backward``
-   for K4 and K5), the eval and train steps at batch 8, peak memory;
-10. a torch.profiler breakdown of one eval and one train step by kernel
-    group, with the device's idle share.
+   library yardsticks (``grid_sample`` for K3 and K6a,
+   ``grid_sampler_2d_backward`` for K4 and K5, ``grid_sampler_3d_backward``
+   for K6b and K6c), the eval and train steps at batch 8 and the 3-D train
+   steps at batch 2, peak memory;
+10. a torch.profiler breakdown of one eval, one train and one step of each
+    3-D stage by kernel group, with the device's idle share.
 
 The line before the last is the kernel table as JSON, the one before it the
 card; the last line is ``{"ok": true, "device": {...}}``. Any failed phase
@@ -54,6 +72,10 @@ import torch.nn.functional as F
 
 from tpureg_torch.cli import inference as cli_inference
 from tpureg_torch.cli import train as cli_train
+from tpureg_torch.cli import train_affine as cli_train_affine
+from tpureg_torch.data import VOLUME_SIZE
+from tpureg_torch.data.pipeline import _process_volume
+from tpureg_torch.models import AffineNet3D, VoxelMorph3D
 from tpureg_torch.ops import cuda_lib
 from tpureg_torch.ops.correlation import (
     correlation_bwd_cuda,
@@ -69,10 +91,19 @@ from tpureg_torch.ops.warp import (
     sample2d_gather,
     sample2d_taps_cuda,
     sample2d_taps_reference,
+    sample3d_cuda,
+    sample3d_dvol_cuda,
+    sample3d_dvol_reference,
+    sample3d_gather,
+    sample3d_taps_cuda,
+    sample3d_taps_reference,
+    voxel_grid,
 )
 from tpureg_torch.reg import OpticalFlowReg
 from tpureg_torch.train import (
     create_train_state,
+    make_affine_train_step,
+    make_deform3d_train_step,
     make_eval_step,
     make_train_step,
     save_best_weights,
@@ -81,6 +112,7 @@ from tpureg_torch.train import (
 
 DEV = torch.device("cuda")
 SIZE, BATCH = 256, 8
+VOL_BATCH = 2                      # the 3-D CLI's default batch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 outside the tensor cores
               torch.bfloat16: 989e12}   # bf16 tensor cores, dense
@@ -89,14 +121,29 @@ COUNTERS = {"correlation": correlation_cuda,
             "correlation_bwd": correlation_bwd_cuda,
             "warp2d": sample2d_cuda,
             "warp2d_taps": sample2d_taps_cuda,
-            "warp2d_dimg": sample2d_dimg_cuda}
-EVAL_LAUNCHES = {"correlation": 1, "correlation_bwd": 0, "warp2d": 7,
-                 "warp2d_taps": 0, "warp2d_dimg": 0}
+            "warp2d_dimg": sample2d_dimg_cuda,
+            "warp3d": sample3d_cuda,
+            "warp3d_taps": sample3d_taps_cuda,
+            "warp3d_dvol": sample3d_dvol_cuda}
+
+
+def launches_of(**nonzero):
+    """Expected counts: ``nonzero`` and 0 for every other kernel."""
+    return {name: nonzero.get(name, 0) for name in COUNTERS}
+
+
+EVAL_LAUNCHES = launches_of(correlation=1, warp2d=7)
 # FlowNetC's correlation and its backward; K4 for the four warps of the
 # cascade and the head's image and grid warps, whose positions need
 # gradients; every warped image is an input, so no K5
-TRAIN_LAUNCHES = {"correlation": 1, "correlation_bwd": 1, "warp2d": 0,
-                  "warp2d_taps": 6, "warp2d_dimg": 0}
+TRAIN_LAUNCHES = launches_of(correlation=1, correlation_bwd=1, warp2d_taps=6)
+# the data synthesis warps each moving volume once with no gradient (K6a);
+# the step's affine warp differentiates the positions only (K6b)
+AFFINE_LAUNCHES = launches_of(warp3d=1, warp3d_taps=1)
+# VoxelMorph3D: 7 scaling-and-squaring compositions and the final warp
+# differentiate their positions (K6b); the compositions' warped fields need
+# a gradient too (K6c); the final warp's volume is an input
+DEFORM_LAUNCHES = launches_of(warp3d_taps=8, warp3d_dvol=7)
 
 
 def require(cond, msg):
@@ -204,6 +251,34 @@ def warp_dimg_work(shape, p, dtype):
     return nbytes, b * p * (8 + 8 * c)
 
 
+def warp3d_work(vol, p):
+    """(bytes, flops) of K6a's function: the volume, three position arrays
+    and the fp32 sample once each; 22 FLOP of corner weights per position
+    and 15 per channel."""
+    b, c = vol.shape[:2]
+    nbytes = vol.numel() * vol.element_size() + 3 * b * p * 4 + b * c * p * 4
+    return nbytes, b * p * (22 + 15 * c)
+
+
+def warp3d_taps_work(vol, p):
+    """(bytes, flops) of K6b's function: as K6a's, with the three bases
+    written too; 79 FLOP per channel (15 for the sample, 64 for the bases)."""
+    b, c = vol.shape[:2]
+    nbytes = vol.numel() * vol.element_size() + 3 * b * p * 4 + 4 * b * c * p * 4
+    return nbytes, b * p * (22 + 79 * c)
+
+
+def warp3d_dvol_work(shape, p, dtype):
+    """(bytes, flops) of K6c's function: positions and the fp32 cotangent
+    read once, the volume cotangent written once in ``dtype``; 22 FLOP of
+    weights per position and 8 products and 8 sums per channel."""
+    b, c = shape[:2]
+    es = torch.finfo(dtype).bits // 8
+    vox = shape[2] * shape[3] * shape[4]
+    nbytes = 3 * b * p * 4 + b * c * p * 4 + b * c * vox * es
+    return nbytes, b * p * (22 + 16 * c)
+
+
 # ---------------------------------------------------------------------------
 # data
 
@@ -248,6 +323,41 @@ def phantom_volume(rng, shape=(176, 208, 176)):
     seg = np.select([r < 0.35, r < 0.6, r < 0.85], [3, 2, 1], 0)
     img = seg * 250 + rng.normal(0, 15, shape)
     return img, seg
+
+
+def head_volumes(seed, n=VOL_BATCH):
+    """[n, 208, 176, 176] phantom heads on the card, as the volume dataset
+    reads an OASIS volume: (X, Y, Z) → (Y, X, Z)."""
+    rng = np.random.default_rng(seed)
+    raw = np.stack([np.transpose(phantom_volume(rng)[0], (1, 0, 2)) for _ in range(n)])
+    return torch.from_numpy(raw.astype(np.float32)).to(DEV)
+
+
+def blob_volumes(b, size, seed):
+    """Fixed/moving volumes [B, D, H, W, 2]: Gaussian blobs, the fixed one
+    1.5 above the moving one, so that the photometric Charbonnier (whose
+    gradient is singular where the two agree) is smooth."""
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n) for n in size), indexing="ij")
+    vols = np.empty((b, *size, 2), np.float32)
+    for i in range(b):
+        for c in range(2):
+            cx, cy, cz = rng.uniform(-0.2, 0.2, 3)
+            blob = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2 + (zz - cz) ** 2) / 0.3)
+            vols[i, ..., c] = 0.5 * blob + (1.5 if c == 0 else 0.0)
+    return torch.from_numpy(vols)
+
+
+def warp3d_inputs(shape, scale, seed, dtype=torch.float32, dz=0.0):
+    """A random volume and positions [B, P] at the voxel grid plus
+    N(0, scale²) displacements and a uniform z shift ``dz``."""
+    b, c, d, h, w = shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    vol = torch.rand(shape, device=DEV, generator=g).to(dtype)
+    flow = torch.randn((b, 3, d, h, w), device=DEV, generator=g) * scale
+    zz, yy, xx = voxel_grid(d, h, w, DEV)
+    pos = (xx + flow[:, 0], yy + flow[:, 1], zz + flow[:, 2] + dz)
+    return vol, [t.reshape(b, -1).contiguous() for t in pos]
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +538,64 @@ def check_warp_grads():
     return errs
 
 
+# the 3-D path's shapes: the final warp of the moving volume and one
+# scaling-and-squaring composition of the half-resolution 3-channel field;
+# fault C1's configuration of the TPU kernel (ADVICE.md:3-4)
+WARP3D_CASES = (("final warp", (VOL_BATCH, 1, *VOLUME_SIZE), 0.7, 0.0),
+                ("composition", (VOL_BATCH, 3, 88, 128, 128), 0.5, 0.0),
+                ("C1, dz -8.5", (1, 1, 32, 64, 64), 0.3, -8.5),
+                ("C1, dz +8.5", (1, 1, 32, 64, 64), 0.3, 8.5))
+
+
+def check_warp3d():
+    phase("4c. K6a (trilinear warp), K6b (with bases) and K6c (volume cotangent) "
+          "against their plain versions")
+    errs = {"warp3d": {}, "warp3d_taps": {}, "warp3d_dvol": {}}
+    for label, shape, scale, dz in WARP3D_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            vol, (px, py, pz) = warp3d_inputs(shape, scale, 30, dtype, dz)
+            got = sample3d_cuda(vol, px, py, pz)
+            out, bx, by, bz = sample3d_taps_cuda(vol, px, py, pz)
+            want = sample3d_gather(vol.float(), px, py, pz)
+            ref = sample3d_taps_reference(vol, px, py, pz)
+            torch.cuda.synchronize()
+            # K6a and K6b's sample: the plain version's roundings, in its
+            # order; the bases: the same products of corner values summed
+            # as tpureg's _gather_taps sums them, not as autograd's chain
+            exact = bool(torch.equal(got, want)) and bool(torch.equal(out, got))
+            base_err = max(float((k - r).abs().max()) for k, r in zip((bx, by, bz), ref[1:]))
+            bases_ok = all(bool(((k - r).abs() <= 1e-6 + 1e-5 * r.abs()).all())
+                           for k, r in zip((bx, by, bz), ref[1:]))
+            del out, bx, by, bz, ref
+            b, c = shape[:2]
+            grad = torch.randn((b, c, px.shape[1]), device=DEV,
+                               generator=torch.Generator(device=DEV).manual_seed(31))
+            dvol = sample3d_dvol_cuda(grad, px, py, pz, shape, dtype).float()
+            dref = sample3d_dvol_reference(grad, px, py, pz, shape, dtype).float()
+            torch.cuda.synchronize()
+            derr = float((dvol - dref).abs().max())
+            if dtype == torch.float32:
+                # the same products added by atomics in an order that
+                # changes from run to run
+                tol, dok = "1e-5 abs + 1e-5 rel", bool(
+                    ((dvol - dref).abs() <= 1e-5 + 1e-5 * dref.abs()).all())
+            else:
+                tol, dok = "2^-7 rel + 1e-5", bool(
+                    ((dvol - dref).abs() <= 2.0**-7 * dref.abs() + 1e-5).all())
+            print(f"  {label} {tuple(shape)} {str(dtype)[6:]}: K6a equal to the plain "
+                  f"sample and K6b's sample to K6a's: {exact}; K6b bases max |kernel "
+                  f"- plain| = {base_err:.3g} (tolerance 1e-6 abs + 1e-5 rel); K6c "
+                  f"max |kernel - plain| = {derr:.3g} (tolerance {tol})")
+            require(exact and bases_ok and dok, f"K6 disagrees ({label}, {dtype})")
+            if dtype == torch.float32 and "C1" not in label:
+                errs["warp3d"][label] = float((got - want).abs().max())
+                errs["warp3d_taps"][label] = base_err
+                errs["warp3d_dvol"][label] = derr
+            del vol, px, py, pz, got, want, grad, dvol, dref
+            torch.cuda.empty_cache()
+    return errs
+
+
 def main_path(model):
     phase("5. eval path: FlowNet2 eval step at 256², batch 8, with segs")
     imgs, segs = phantom_batch(BATCH, SIZE, seed=2)
@@ -605,6 +773,168 @@ def train_path():
     return launches, steps, imgs
 
 
+def gradients3d(model, make_step, vols):
+    """(loss, {name: gradient}) of one 3-D train step of ``model`` on
+    ``vols``, through the public step with a zero learning rate."""
+    state = create_train_state(model, learning_rate=0.0, adam_eps=1e-8)
+    metrics = make_step(state)(vols)
+    return float(metrics["loss"]), {n: p.grad.detach().double().cpu()
+                                    for n, p in model.named_parameters()}
+
+
+def card_against_cpu(label, cpu_model, make_step, vols):
+    """Batch 1 at a size the CPU runs quickly: the card's loss against the
+    CPU's (1e-4 relative), and the card's fp32 gradient no further from the
+    CPU's fp64 gradient than twice the CPU's fp32 gradient is (or 1e-5,
+    where fp32 rounding alone sets the distance)."""
+    card_model = copy.deepcopy(cpu_model).to(DEV)
+    fp64_model = copy.deepcopy(cpu_model).double()
+    t0 = time.time()
+    closs, cgrads = gradients3d(cpu_model, make_step, vols)
+    rloss, rgrads = gradients3d(fp64_model, make_step, vols.double())
+    print(f"  CPU plain path, batch 1 {tuple(vols.shape[1:4])}, fp32 and fp64: "
+          f"{time.time() - t0:.1f} s")
+    gloss, ggrads = gradients3d(card_model, make_step, vols.to(DEV))
+    rel = abs(gloss / closs - 1)
+    print(f"  {label} batch 1 loss: card {gloss:.9g}, CPU {closs:.9g}, {rel:.3g} "
+          f"relative (tolerance 1e-4); CPU fp64 {rloss:.12g}")
+    require(rel <= 1e-4, f"{label}: card and CPU losses disagree")
+
+    def spread(grads):
+        errs = sorted(float((grads[k] - rgrads[k]).norm()
+                            / max(float(rgrads[k].norm()), 1e-30)) for k in rgrads)
+        diff2 = sum(float(((grads[k] - rgrads[k]) ** 2).sum()) for k in rgrads)
+        ref2 = sum(float((rgrads[k] ** 2).sum()) for k in rgrads)
+        return (diff2 / ref2) ** 0.5, errs[len(errs) // 2], errs[-1]
+
+    card, cpu = spread(ggrads), spread(cgrads)
+    for name, (whole, median, worst) in (("card fp32", card), ("CPU fp32", cpu)):
+        print(f"  {label} batch 1 gradients, {name} vs CPU fp64, relative L2: whole "
+              f"model {whole:.3g}, per tensor median {median:.3g}, worst {worst:.3g}")
+    require(card[0] <= max(2 * cpu[0], 1e-5) and card[1] <= max(2 * cpu[1], 1e-5),
+            f"{label}: the card's fp32 gradients are further from fp64 than the "
+            "CPU's allow")
+
+
+def loss_falls(label, step, vols, first):
+    losses = [first] + [float(step(vols)["loss"]) for _ in range(4)]
+    print(f"  {label}: loss over 5 steps on one batch: "
+          + ", ".join(f"{v:.8g}" for v in losses))
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"{label}: the loss is not finite or does not fall")
+
+
+def affine_path():
+    phase("8b. 3-D affine path: volume synthesis and AffineNet3D train step at "
+          "176 x 256 x 256, batch 2, fp32")
+    raw = head_volumes(10)
+    model = AffineNet3D(VOLUME_SIZE, generator=torch.Generator().manual_seed(3))
+    print(f"  AffineNet3D: {sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+          f"parameters, seeded random weights")
+    state = create_train_state(model.to(DEV), learning_rate=1e-4, adam_eps=1e-8)
+    step = make_affine_train_step(state)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    torch.cuda.synchronize()
+    reset_counts()
+    vols = _process_volume(raw, VOLUME_SIZE, gen)["image_c"]
+    metrics = step(vols)
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  launches in the synthesis and one step: {launches}")
+    require(launches == AFFINE_LAUNCHES, f"the affine path should launch {AFFINE_LAUNCHES}")
+    require(tuple(vols.shape) == (VOL_BATCH, *VOLUME_SIZE, 2)
+            and float(vols.min()) == 0.0 and float(vols.max()) == 1.0,
+            "synthesised volumes: shape or scaling")
+    print(f"  metrics: " + ", ".join(f"{k} {float(v):.8g}" for k, v in metrics.items()))
+    loss_falls("affine", step, vols, float(metrics["loss"]))
+    require(state.step == 5, "affine step count")
+
+    cpu_model = AffineNet3D((16, 64, 64), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():  # θ off the identity, a gradient to every conv
+        g = torch.Generator().manual_seed(5)
+        cpu_model.fc.bias.add_(torch.randn(12, generator=g) * 0.05)
+        cpu_model.fc.weight.copy_(torch.randn(cpu_model.fc.weight.shape, generator=g) * 1e-3)
+    card_against_cpu("affine", cpu_model, make_affine_train_step,
+                     blob_volumes(1, (16, 64, 64), 12))
+    return launches, step, vols
+
+
+def deform_path(vols):
+    phase("8c. 3-D deform path: VoxelMorph3D train step at 176 x 256 x 256, "
+          "batch 2, fp32")
+    model = VoxelMorph3D(generator=torch.Generator().manual_seed(6))
+    # the velocity head at N(0, 1e-2²) in place of N(0, 1e-5²): from flows of
+    # 1e-5 voxel the smoothness Charbonnier sits on its |x|^1/2 cusp, and the
+    # first Adam step (every weight moves by about lr) raises it more than
+    # the data terms fall (on the CPU at 32 x 64 x 64: +908, then -200 a
+    # step); from flows of ~1e-2 voxel the loss falls from the first step
+    with torch.no_grad():
+        model.flow_head.weight.mul_(1e3)
+    print(f"  VoxelMorph3D at full width: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e3:.3f} k parameters, "
+          f"seeded random weights, velocity head scaled by 1e3")
+    state = create_train_state(model.to(DEV), learning_rate=1e-4, adam_eps=1e-8)
+    step = make_deform3d_train_step(state)
+    torch.cuda.synchronize()
+    reset_counts()
+    metrics = step(vols)
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  launches in one step: {launches}")
+    require(launches == DEFORM_LAUNCHES, f"the deform step should launch {DEFORM_LAUNCHES}")
+    print(f"  metrics: " + ", ".join(f"{k} {float(v):.8g}" for k, v in metrics.items()))
+    loss_falls("deform", step, vols, float(metrics["loss"]))
+    require(state.step == 5 and all(bool(torch.isfinite(p).all())
+                                    for p in model.parameters()),
+            "deform: step count or non-finite weights")
+    with torch.no_grad():
+        flow, warped, _ = model(vols.permute(0, 4, 1, 2, 3).contiguous())
+    require(tuple(flow.shape) == (VOL_BATCH, 3, *VOLUME_SIZE)
+            and tuple(warped.shape) == (VOL_BATCH, 1, *VOLUME_SIZE)
+            and bool(torch.isfinite(flow).all()) and bool(torch.isfinite(warped).all()),
+            "deform: flow or warped volume shape, or non-finite")
+    print(f"  after 5 steps: |flow| max {float(flow.abs().max()):.4g} voxels")
+
+    cpu_model = VoxelMorph3D(generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():  # flows of about a voxel, off the voxel grid
+        cpu_model.flow_head.weight.mul_(3e4)
+    card_against_cpu("deform", cpu_model, make_deform3d_train_step,
+                     blob_volumes(1, (32, 64, 64), 13))
+    return launches, step, flow
+
+
+def run_3d_cli():
+    phase("8d. 3-D CLI: --stage affine on 10 phantom volumes, --stage deform "
+          "--synthetic 2")
+    rng = np.random.default_rng(14)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(10):
+            write_analyze(os.path.join(tmp, f"vol{i:02d}_mpr"), phantom_volume(rng)[0])
+        runs = {}
+        for stage, extra, want in (
+                ("affine", ["--img_dir", tmp], launches_of(warp3d=4, warp3d_taps=4)),
+                ("deform", ["--synthetic", "2"],
+                 launches_of(warp3d_taps=16, warp3d_dvol=14))):
+            out = io.StringIO()
+            reset_counts()
+            t0 = time.time()
+            with contextlib.redirect_stdout(out):
+                state = cli_train_affine.main(["--stage", stage, "--epochs", "1",
+                                               *extra], device="cuda")
+            torch.cuda.synchronize()
+            got = counts()
+            runs[stage] = out.getvalue()
+            print(f"  --stage {stage} {' '.join(extra[:1])}: {time.time() - t0:.1f} s, "
+                  f"{state.step} steps, launches {got}")
+            for line in runs[stage].splitlines():
+                print(f"    {line}")
+            # 8 training volumes of 10 make 4 batches of 2; 2 synthetic batches
+            require(got == want and state.step == (4 if stage == "affine" else 2),
+                    f"--stage {stage}: launches or steps")
+            tag = stage.upper()
+            require(f"[{tag} epoch 1/1] loss" in runs[stage], f"--stage {stage} output")
+
+
 def cli_summary(text):
     """The epoch, checkpoint and summary lines of a CLI's output."""
     keep = ("EPOCH", "===>", "saving", "loading", "complete", "summary")
@@ -672,9 +1002,9 @@ def kernel_row(name, source, replaces, counter, path, err, ms, plain, work,
             "library_ms": library, "_counter": counter, "_path": path}
 
 
-def step_times(label, call, reps=10, warmup=2):
+def step_times(label, call, reps=10, warmup=2, per=BATCH, unit="pair"):
     """Median host time of ``call`` (which returns its metrics) to a
-    synchronised card, after ``warmup`` calls."""
+    synchronised card, after ``warmup`` calls; ``per`` items a step."""
     times = []
     for i in range(warmup + reps):
         torch.cuda.synchronize()
@@ -685,7 +1015,7 @@ def step_times(label, call, reps=10, warmup=2):
         if i >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
-    print(f"  {label}: median {med:.3f} ms ({med / BATCH:.3f} ms per pair; min "
+    print(f"  {label}: median {med:.3f} ms ({med / per:.3f} ms per {unit}; min "
           f"{min(times):.3f}, max {max(times):.3f}, {reps} steps after {warmup})")
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
@@ -699,7 +1029,106 @@ def step_times(label, call, reps=10, warmup=2):
     return med
 
 
-def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs):
+def rigid_positions(ang, tx, ty, size=VOLUME_SIZE, b=VOL_BATCH):
+    """Positions [B, P] of the volume synthesis's warp (``affine_warp3d``)
+    for a rotation by ``ang`` about the axial axis and an in-plane shift of
+    (tx, ty) voxels."""
+    d, h, w = size
+    norm = lambda n: (2.0 * torch.arange(n, device=DEV, dtype=torch.float32) + 1.0) / n - 1.0
+    zz, yy, xx = torch.meshgrid(norm(d), norm(h), norm(w), indexing="ij")
+    c, s = float(np.cos(ang)), float(np.sin(ang))
+    gx = xx * c - yy * s + tx * 2 / w
+    gy = xx * s + yy * c + ty * 2 / h
+    pos = (((gx + 1.0) * w - 1.0) / 2.0, ((gy + 1.0) * h - 1.0) / 2.0,
+           ((zz + 1.0) * d - 1.0) / 2.0)
+    return [t.expand(b, d, h, w).reshape(b, -1).contiguous() for t in pos]
+
+
+def unit_grid(px, py, pz, shape):
+    """``grid_sample``'s grid (align_corners=True) for voxel positions."""
+    b, _, d, h, w = shape
+    return torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1,
+                        pz * (2 / (d - 1)) - 1], -1).reshape(b, d, h, w, 3)
+
+
+def warp3d_timings(errs, vols, vflow):
+    """K6a, K6b and K6c at the shapes of the 3-D paths, with their plain
+    versions and ``grid_sample``'s 5-D forward and backward as yardsticks."""
+    rows = []
+    moving = vols[..., 1][:, None].contiguous()   # [2, 1, 176, 256, 256]
+    shape = tuple(moving.shape)
+    # K6a: the synthesis's rigid warp of the moving volume
+    px, py, pz = rigid_positions(0.5, 3.0, -2.0)
+    p = px.shape[1]
+    grid = unit_grid(px, py, pz, shape)
+    ms = time_ms(lambda: sample3d_cuda(moving, px, py, pz), 50)
+    plain = time_ms(lambda: sample3d_gather(moving, px, py, pz), 3, head_start_ms=300.0)
+    lib_out = F.grid_sample(moving, grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=True).reshape(shape[0], 1, -1)
+    print(f"  grid_sample 5-D yardstick agrees with K6a to "
+          f"{float((lib_out - sample3d_cuda(moving, px, py, pz)).abs().max()):.3g}")
+    lib = time_ms(lambda: F.grid_sample(moving, grid, mode="bilinear",
+                                        padding_mode="zeros", align_corners=True), 50)
+    rows.append(kernel_row("warp3d", "warp3d.cu", "tpureg/ops/warp3d_pallas.py:210",
+                           "warp3d", "affine", errs["warp3d"]["final warp"], ms, plain,
+                           warp3d_work(moving, p), torch.float32, lib))
+    # K6b at the final warp: the deform model's flow after five steps
+    zz, yy, xx = voxel_grid(*VOLUME_SIZE, DEV)
+    fpos = [(g + vflow[:, k]).reshape(shape[0], -1).contiguous()
+            for k, g in enumerate((xx, yy, zz))]
+    del zz, yy, xx
+    grid = unit_grid(*fpos, shape)
+    cot = torch.randn((shape[0], 1, p), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(33))
+    ms = time_ms(lambda: sample3d_taps_cuda(moving, *fpos), 50)
+    plain = time_ms(lambda: sample3d_taps_reference(moving, *fpos), 3, head_start_ms=300.0)
+    _, dgrid = torch.ops.aten.grid_sampler_3d_backward(
+        cot.reshape(shape), moving, grid, 0, 0, True, [False, True])
+    dx = (cot * sample3d_taps_cuda(moving, *fpos)[1]).reshape(dgrid.shape[:-1]) \
+        * ((shape[4] - 1) / 2)
+    print(f"  grid_sampler_3d_backward d/dgrid agrees with K6b·g to "
+          f"{float((dgrid[..., 0] - dx).abs().max()):.3g} (of {float(dx.abs().max()):.3g})")
+    lib = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+        cot.reshape(shape), moving, grid, 0, 0, True, [False, True]), 50)
+    rows.append(kernel_row("warp3d_taps", "warp3d.cu", "tpureg/ops/warp3d_pallas.py:210",
+                           "warp3d_taps", "deform", errs["warp3d_taps"]["final warp"], ms,
+                           plain, warp3d_taps_work(moving, p), torch.float32, lib))
+    del fpos, grid, cot, dgrid, dx
+    # K6b and K6c at a composition's shape: the 3-channel field at half
+    # resolution warped by itself
+    cshape = WARP3D_CASES[1][1]
+    field, (cx, cy, cz) = warp3d_inputs(cshape, 0.5, 34)
+    cp = cx.shape[1]
+    grid = unit_grid(cx, cy, cz, cshape)
+    cot = torch.randn((cshape[0], cshape[1], cp), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(35))
+    ms = time_ms(lambda: sample3d_taps_cuda(field, cx, cy, cz), 100)
+    plain = time_ms(lambda: sample3d_taps_reference(field, cx, cy, cz), 3,
+                    head_start_ms=300.0)
+    lib = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+        cot.reshape(cshape), field, grid, 0, 0, True, [False, True]), 100)
+    rows.append(kernel_row("warp3d_taps_composition", "warp3d.cu",
+                           "tpureg/ops/warp3d_pallas.py:210", "warp3d_taps", "deform",
+                           errs["warp3d_taps"]["composition"], ms, plain,
+                           warp3d_taps_work(field, cp), torch.float32, lib))
+    dimg_lib, _ = torch.ops.aten.grid_sampler_3d_backward(
+        cot.reshape(cshape), field, grid, 0, 0, True, [True, False])
+    print(f"  grid_sampler_3d_backward d/dinput agrees with K6c to "
+          f"{float((dimg_lib - sample3d_dvol_cuda(cot, cx, cy, cz, cshape)).abs().max()):.3g}")
+    ms = time_ms(lambda: sample3d_dvol_cuda(cot, cx, cy, cz, cshape), 100)
+    plain = time_ms(lambda: sample3d_dvol_reference(cot, cx, cy, cz, cshape), 3,
+                    head_start_ms=300.0)
+    lib = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+        cot.reshape(cshape), field, grid, 0, 0, True, [True, False]), 100)
+    rows.append(kernel_row("warp3d_dvol", "warp3d.cu", "tpureg/ops/warp3d_pallas.py:456",
+                           "warp3d_dvol", "deform", errs["warp3d_dvol"]["composition"], ms,
+                           plain, warp3d_dvol_work(cshape, cp, torch.float32),
+                           torch.float32, lib))
+    return rows
+
+
+def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
+            vol_steps, vols, vflow):
     phase("9. timings (CUDA events, back-to-back launches queued ahead, warm L2)")
     kernels = []
     g = torch.Generator(device=DEV).manual_seed(4)
@@ -801,9 +1230,10 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs):
             "warp2d_dimg" + sfx, "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:230",
             "warp2d_dimg", "train", errs["dimg"][dtype], ms, plain,
             warp_dimg_work(shape, p, dtype), torch.float32, lib_dimg))
+    kernels += warp3d_timings(errs["warp3d"], vols, vflow)
     for row in kernels:
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
-        print(f"  {row['name']:20s} kernel {row['ms'] * 1e3:8.2f} us  plain "
+        print(f"  {row['name']:24s} kernel {row['ms'] * 1e3:8.2f} us  plain "
               f"{row['plain_ms'] * 1e3:9.2f} us  bound {row['bound_ms'] * 1e3:6.2f} us "
               f"({row['bound_by']})  library {lib}")
 
@@ -813,6 +1243,9 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs):
     for name, step in train_steps.items():
         step_times(f"train step {name}, batch {BATCH} at 256²",
                    lambda: step(train_imgs))
+    for name, step in vol_steps.items():
+        step_times(f"3-D {name} train step fp32, batch {VOL_BATCH} at 176 x 256 x 256",
+                   lambda: step(vols), per=VOL_BATCH, unit="volume")
     return kernels
 
 
@@ -821,7 +1254,10 @@ def _kernel_group(name):
               ("corr_bwd_kernel", "K2 correlation backward"),
               ("warp2d_fwd_kernel", "K3 warp"),
               ("warp2d_taps_kernel", "K4 warp with bases"),
-              ("warp2d_dimg_kernel", "K5 warp image cotangent"))
+              ("warp2d_dimg_kernel", "K5 warp image cotangent"),
+              ("warp3d_fwd_kernel", "K6a 3-D warp"),
+              ("warp3d_taps_kernel", "K6b 3-D warp with bases"),
+              ("warp3d_dvol_kernel", "K6c 3-D warp volume cotangent"))
     for key, group in groups:
         if key in name:
             return group
@@ -895,7 +1331,7 @@ def main():
     build()
     mark("build")
     errs = {"corr": check_correlation(), "corr_bwd": check_correlation_bwd(),
-            "warp": check_warp(), **check_warp_grads()}
+            "warp": check_warp(), **check_warp_grads(), "warp3d": check_warp3d()}
     mark("kernel checks")
 
     model = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(0))
@@ -911,13 +1347,23 @@ def main():
     mark("train path")
     run_train_cli()
     mark("training CLI")
-    kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs)
+    affine_launches, affine_step, vols = affine_path()
+    mark("3-D affine path")
+    deform_launches, deform_step, vflow = deform_path(vols)
+    mark("3-D deform path")
+    run_3d_cli()
+    mark("3-D CLI")
+    vol_steps = {"affine": affine_step, "deform": deform_step}
+    kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
+                      vol_steps, vols, vflow)
     mark("timings")
     phase("10. where the steps' time goes (torch.profiler, one step each)")
     breakdown("eval step", eval_steps, (imgs, segs))
     breakdown("train step", train_steps, (train_imgs,))
+    breakdown("3-D train step", vol_steps, (vols,))
     mark("breakdown")
-    launches = {"eval": eval_launches, "train": train_launches}
+    launches = {"eval": eval_launches, "train": train_launches,
+                "affine": {"fp32": affine_launches}, "deform": {"fp32": deform_launches}}
     for row in kernels:
         dtype = "bf16" if row["name"].endswith("_bf16") else "fp32"
         row["launches"] = launches[row.pop("_path")][dtype][row.pop("_counter")]

@@ -23,7 +23,16 @@ from tpureg_torch.ops import (
     sample2d_gather,
     sample2d_taps_cuda,
     sample2d_taps_reference,
+    sample3d,
+    sample3d_cuda,
+    sample3d_dvol_cuda,
+    sample3d_dvol_reference,
+    sample3d_gather,
+    sample3d_taps_cuda,
+    sample3d_taps_reference,
+    warp3d,
 )
+from tpureg_torch.ops.warp import _Sample3dKernel
 
 pytestmark = pytest.mark.gpu
 
@@ -257,3 +266,128 @@ def test_warp_autograd_runs_k4_and_k5(dev):
     sample2d_gather(img2, px2, py2).sin().sum().backward()
     torch.testing.assert_close(img.grad, img2.grad, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(flow.grad, flow2.grad, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6a, K6b, K6c: the trilinear 3-D warp, its bases and its volume cotangent
+
+def _positions3d(dev, b, d, h, w, scale, seed, dz=0.0):
+    """Positions at the voxel grid plus N(0, scale²) displacements (and a
+    uniform z shift ``dz``), [B, P] each."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flow = torch.randn((b, 3, d, h, w), device=dev, generator=g) * scale
+    zz, yy, xx = torch.meshgrid(*(torch.arange(n, device=dev, dtype=torch.float32)
+                                  for n in (d, h, w)), indexing="ij")
+    pos = (xx + flow[:, 0], yy + flow[:, 1], zz + flow[:, 2] + dz)
+    return [p.reshape(b, -1).contiguous() for p in pos]
+
+
+# (shape, displacement std, uniform z shift): the final warp's volume at a
+# reduced size, a composition's 3-channel field, fault C1's configuration
+# (d = 32, dz = ±8.5) and scattered positions far beyond any TPU window
+WARP3D_CASES = [((2, 1, 44, 64, 64), 0.7, 0.0), ((2, 3, 22, 32, 32), 0.5, 0.0),
+                ((1, 1, 32, 64, 64), 0.3, -8.5), ((1, 1, 32, 64, 64), 0.3, 8.5),
+                ((2, 3, 13, 17, 19), 12.0, 0.0)]
+WARP3D_IDS = ["final", "composition", "c1-neg", "c1-pos", "scattered"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,scale,dz", WARP3D_CASES, ids=WARP3D_IDS)
+def test_warp3d_kernels_match_plain(dev, dtype, shape, scale, dz):
+    b, c, d, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(20)
+    vol = torch.rand(shape, device=dev, generator=g).to(dtype)
+    px, py, pz = _positions3d(dev, b, d, h, w, scale, 21, dz)
+    got = sample3d_cuda(vol, px, py, pz)
+    out, dpx, dpy, dpz = sample3d_taps_cuda(vol, px, py, pz)
+    want = sample3d_gather(vol.float(), px, py, pz)
+    ref = sample3d_taps_reference(vol, px, py, pz)
+    torch.cuda.synchronize()
+    # K6a and K6b's sample: the plain version's roundings in its order
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(out, got, atol=0, rtol=0)
+    # the bases: the same products of corner values, summed as tpureg's
+    # _gather_taps sums them and not as autograd's chain does
+    for k, r in zip((dpx, dpy, dpz), ref[1:]):
+        torch.testing.assert_close(k, r, atol=1e-6, rtol=1e-5)
+    grad = torch.randn((b, c, px.shape[1]), device=dev, generator=g)
+    dvol = sample3d_dvol_cuda(grad, px, py, pz, shape, dtype)
+    dref = sample3d_dvol_reference(grad, px, py, pz, shape, dtype)
+    torch.cuda.synchronize()
+    assert dvol.dtype == dtype
+    if dtype == torch.float32:
+        # the same products added by atomics in an order that changes from
+        # run to run: fp32 roundings of sums of order 1-10
+        torch.testing.assert_close(dvol, dref, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(dvol, dref, atol=1e-5)
+
+
+def test_warp3d_non_finite_positions_give_zero(dev):
+    vol = torch.ones((1, 2, 3, 4, 4), device=dev)
+    px = torch.tensor([[float("nan"), float("inf"), -1e30, 1.5]], device=dev)
+    py = torch.tensor([[0.0, 0.0, 0.0, 1e30]], device=dev)
+    out = sample3d_cuda(vol, px, py, py.clone())
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_warp3d_dispatch_counts_and_refusals(dev):
+    g = torch.Generator(device=dev).manual_seed(22)
+    vol = torch.rand((2, 3, 6, 8, 10), device=dev, generator=g)
+    flow = (torch.randn((2, 3, 6, 8, 10), device=dev, generator=g) * 1.5)
+    counts = lambda: (sample3d_cuda.launches, sample3d_taps_cuda.launches,
+                      sample3d_dvol_cuda.launches)
+    before = counts()
+    with torch.no_grad():
+        warp3d(vol, flow)
+    assert counts() == (before[0] + 1, before[1], before[2])
+    f = flow.clone().requires_grad_()
+    warp3d(f, f).square().sum().backward()  # a composition: field and positions
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    f2 = flow.clone().requires_grad_()
+    warp3d(vol, f2).sum().backward()        # the final warp: positions only
+    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 1)
+    out = sample3d(vol.bfloat16(), *(t.reshape(2, 6, 8, 10) for t in
+                                     _positions3d(dev, 2, 6, 8, 10, 1.0, 23)))
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 3, 6, 8, 10)
+    with pytest.raises(TypeError):
+        sample3d(vol.half(), vol[:, 0], vol[:, 0], vol[:, 0])
+    with pytest.raises(ValueError):
+        sample3d_cuda(vol, *(t[:, ::2] for t in _positions3d(dev, 2, 6, 8, 10, 1.0, 24)))
+
+
+def test_warp3d_kernel_gradients_against_fp64_differences(dev):
+    """gradcheck's test of _Sample3dKernel: its analytic gradients (fp32
+    kernels on the card) against central differences of the plain version
+    in fp64, at positions at least 0.05 from a voxel plane (the trilinear
+    sample is smooth between them)."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    b, c, d, h, w = 1, 2, 4, 5, 6
+    vol = torch.rand((b, c, d, h, w), device=dev, generator=g, dtype=torch.float64)
+    pos = [torch.rand((b, 7), device=dev, generator=g, dtype=torch.float64)
+           * (n + 1) - 1.0 for n in (w, h, d)]
+    pos = [torch.floor(p) + 0.05 + 0.9 * (p - torch.floor(p)) for p in pos]
+    weights = torch.randn((b, c, 7), device=dev, generator=g, dtype=torch.float64)
+
+    def plain(v, x, y, z):
+        return (sample3d_gather(v, x, y, z) * weights).sum()
+
+    args = [vol.float().requires_grad_()] + [p.float().requires_grad_() for p in pos]
+    (_Sample3dKernel.apply(*args) * weights.float()).sum().backward()
+    eps = 1e-6
+    inputs = [vol] + pos
+    for i, (x, a) in enumerate(zip(inputs, args)):
+        num = torch.zeros_like(x)
+        flat = num.view(-1)
+        for j in range(x.numel()):
+            hi = [t.clone() for t in inputs]
+            lo = [t.clone() for t in inputs]
+            hi[i].view(-1)[j] += eps
+            lo[i].view(-1)[j] -= eps
+            flat[j] = (plain(*hi) - plain(*lo)) / (2 * eps)
+        # fp32 kernels against fp64 differences: fp32 roundings of O(1) values
+        torch.testing.assert_close(a.grad.double(), num, atol=1e-5, rtol=1e-4)
+    # and the plain version itself passes gradcheck in fp64
+    assert torch.autograd.gradcheck(
+        lambda v, x, y, z: sample3d_gather(v, x, y, z),
+        [vol.requires_grad_()] + [p.requires_grad_() for p in pos])

@@ -17,6 +17,13 @@ torch's (in, out, kh, kw) with the spatial flip undone; BatchNorm
 scale/bias/mean/var → weight/bias/running_mean/running_var, plus a zero
 ``num_batches_tracked``, so that a strict ``load_state_dict`` succeeds.
 
+``state_dict_from_jax_3d`` carries the 3-D models' trees
+(``VoxelMorph3D``, ``AffineNet3D``), whose port modules are named as the
+flax modules are (``enc0/conv/kernel`` → ``enc0.conv.weight``,
+``flow_head/bias`` → ``flow_head.bias``, ``conv3/kernel`` →
+``conv3.weight``, ``fc/kernel`` → ``fc.weight``): Conv3D kernels go from
+DHWIO to OIDHW, the dense kernel from (in, out) to (out, in).
+
 ``load_adam_state_from_jax`` carries optax's Adam state (``count``, ``mu``,
 ``nu``; trees shaped like the parameters) into ``torch.optim.Adam``'s
 (``step``, ``exp_avg``, ``exp_avg_sq``) with the same key mapping and layout
@@ -31,10 +38,13 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "load_adam_state_from_jax"]
+__all__ = ["state_dict_from_jax", "state_dict_from_jax_3d",
+           "load_adam_state_from_jax"]
 
 _UPFLOW_RE = re.compile(r"upsampled_flow(\d)_to_(\d)")
 _UPFLOW_FLAX_RE = re.compile(r"^upflow(\d)to(\d)$")
+# module paths of the 3-D models' flax trees
+_MODULE_3D_RE = re.compile(r"^((enc|dec|extra)\d+/conv|flow_head|conv\d+|fc)$")
 _BN_TO_TORCH = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                 "var": "running_var"}
 
@@ -139,6 +149,33 @@ def state_dict_from_jax(params, batch_stats=None,
             if collection == "batch_stats" and leaf == "mean":
                 nbt = key.rsplit(".", 1)[0] + ".num_batches_tracked"
                 out[nbt] = torch.zeros((), dtype=torch.int64)
+    return out
+
+
+def state_dict_from_jax_3d(params) -> Dict[str, torch.Tensor]:
+    """tpureg ``params`` of a ``VoxelMorph3D`` or ``AffineNet3D`` (nested
+    dicts of numpy arrays) → the port's state dict. Raises on a leaf it
+    cannot place: a module path the models do not have, a leaf other than a
+    kernel or a bias, or a kernel that is neither a 3-D convolution's nor a
+    dense layer's."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        *mods, leaf = path
+        value = np.asarray(value, dtype=np.float32)
+        module = "/".join(mods)
+        if not _MODULE_3D_RE.match(module) or leaf not in ("kernel", "bias"):
+            raise ValueError(f"params leaf {'/'.join(path)} has no counterpart "
+                             f"in the port's 3-D models")
+        if leaf == "kernel":
+            if value.ndim == 5:
+                value = value.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
+            elif value.ndim == 2 and module == "fc":
+                value = value.T  # (in, out) -> (out, in)
+            else:
+                raise ValueError(f"params leaf {'/'.join(path)}: a kernel of "
+                                 f"shape {value.shape} has no counterpart")
+        key = ".".join(mods + ["weight" if leaf == "kernel" else "bias"])
+        out[key] = torch.tensor(np.ascontiguousarray(value))
     return out
 
 

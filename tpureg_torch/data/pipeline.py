@@ -16,7 +16,10 @@ Dataset constructors:
 - ``eval_random_dataset``: elastic pairs of evaluation strength, magnitude
   (0.5, 1) (dataset.py:169-219);
 - ``real_pairs_dataset``: distinct fixed and moving subjects, no
-  augmentation (dataset.py:222-275).
+  augmentation (dataset.py:222-275);
+- ``volume_dataset``: whole-volume 3-D pairs for the volumetric stages, each
+  moving volume a random rigid transform of its fixed one (dataset.py:100-167,
+  tpureg's pipeline.py:486-557).
 
 Batches are dicts ``{"image_c": [B,256,256,2], "seg_c": [B,256,256,2]}``
 on the device the caller names, in tpureg's channels-last layout.
@@ -38,14 +41,16 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..models.affine3d import affine_warp3d
 from ..ops.elastic import rand_elastic_2d
-from ..ops.resize import resize2d
+from ..ops.resize import resize2d, resize_nd
 from ..utils.seeding import derive_seed, seed_everything
 from .analyze import read_analyze
 
 __all__ = ["list_pairs", "split_volumes", "VolumeSliceSource", "SliceDataset",
            "synth_image_batch", "volume2slices_datasets", "eval_random_dataset",
-           "RealPairsDataset", "real_pairs_dataset"]
+           "RealPairsDataset", "real_pairs_dataset", "VOLUME_SIZE",
+           "random_rigid_draws", "VolumePairDataset", "volume_dataset"]
 
 CROP_Z = (60, 140)   # dataset.py:56 — 80 axial slices per volume
 CROP_X = (0, 176)
@@ -325,3 +330,108 @@ def real_pairs_dataset(fiximg_dir, fixseg_dir, movimg_dir, movseg_dir,
     fix = (fix * len(mov))[: len(mov)]
     ds = RealPairsDataset(fix, mov, batch_size, torch.device(device))
     return ds, len(ds)
+
+
+# ---------------------------------------------------------------------------
+# 3-D volumes (the affine pre-registration stage's data)
+
+VOLUME_SIZE = (176, 256, 256)   # (D, H, W), reference Resized((256, 256, 176))
+
+
+def random_rigid_draws(batch: int, generator: Optional[torch.Generator] = None,
+                       device=None):
+    """(angle [B] ~ U(-π/4, π/4) about the axial axis, tx [B] and ty [B]
+    ~ U(-5, 5) voxels in plane), drawn from ``generator`` (on its device)."""
+    if generator is not None:
+        device = generator.device
+    u = torch.rand((3, batch), device=device, generator=generator)
+    return (u[0] * (np.pi / 2) - np.pi / 4, u[1] * 10.0 - 5.0,
+            u[2] * 10.0 - 5.0)
+
+
+def _minmax_scale_volume(x):
+    """Min-max to [0, 1] per sample and per channel of NCDHW ``x``: tpureg's
+    ``_minmax_scale`` reduces axes (1, 2, 3) of its [B, D, H, W, 2] volumes,
+    so the fixed and the moving volume are scaled each on its own."""
+    lo = torch.amin(x, dim=(2, 3, 4), keepdim=True)
+    hi = torch.amax(x, dim=(2, 3, 4), keepdim=True)
+    return torch.where(hi > lo, (x - lo) / (hi - lo), x)
+
+
+def _process_volume(vol, size: Tuple[int, int, int] = VOLUME_SIZE,
+                    generator: Optional[torch.Generator] = None, draws=None):
+    """[B, D', H', W'] volumes → ``{"image_c": [B, D, H, W, 2]}``: trilinear
+    resize to ``size`` (align_corners=False), ``rot90`` k=2 over (H, W), a
+    moving volume warped by a random rotation about the axial axis and an
+    in-plane shift (``affine_warp3d``, kernel K6a on the card), and the
+    min-max scaling. ``draws`` = (angle, tx, ty) as ``random_rigid_draws``
+    gives them; drawn from ``generator`` unless given."""
+    b = vol.shape[0]
+    vol = resize_nd(vol[:, None].float(), size, "linear", align_corners=False)
+    vol = torch.rot90(vol, 2, dims=(3, 4))
+    ang, tx, ty = (draws if draws is not None
+                   else random_rigid_draws(b, generator, vol.device))
+    # shifts normalised to [-1, 1] coordinates
+    tx = tx * 2 / size[2]
+    ty = ty * 2 / size[1]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    zeros, ones = torch.zeros_like(ang), torch.ones_like(ang)
+    theta = torch.stack([torch.stack([cos, -sin, zeros, tx], dim=-1),
+                         torch.stack([sin, cos, zeros, ty], dim=-1),
+                         torch.stack([zeros, zeros, ones, zeros], dim=-1)], dim=1)
+    moving = affine_warp3d(vol, theta)
+    image_c = _minmax_scale_volume(torch.cat([vol, moving], dim=1))
+    return {"image_c": image_c.permute(0, 2, 3, 4, 1).contiguous()}
+
+
+def _load_volume(path: str) -> np.ndarray:
+    """(D, H, W) volume of an Analyze file: the reference's
+    Transposed([3, 1, 0, 2]) of (X, Y, Z, V), first frame."""
+    vol = read_analyze(path)
+    if vol.ndim == 3:
+        vol = vol[..., None]
+    return np.transpose(vol, (3, 1, 0, 2))[0]
+
+
+@dataclass
+class VolumePairDataset:
+    """Whole-volume fixed/moving pairs, tpureg's ``VolumePairDataset``: the
+    volumes are read in order and each full batch is processed on
+    ``device`` with a generator seeded from ``seed`` and the batch's index
+    (the last partial batch is dropped)."""
+
+    items: List[Dict[str, str]]
+    batch_size: int
+    seed: Tuple[int, ...]
+    device: torch.device
+    size: Tuple[int, int, int] = VOLUME_SIZE
+
+    def __len__(self):
+        return len(self.items)
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        vols, j = [], 0
+        for item in self.items:
+            vols.append(_load_volume(item["image"]))
+            if len(vols) == self.batch_size:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    derive_seed(*self.seed, j))
+                batch = torch.from_numpy(np.stack(vols)).to(self.device)
+                vols, j = [], j + 1
+                yield _process_volume(batch, self.size, gen)
+
+
+def volume_dataset(data_dir: str, batch_size: int, device,
+                   val_frac: float = 0.1, test_frac: float = 0.1,
+                   seed: int = 6, limit: Optional[int] = 20,
+                   size: Tuple[int, int, int] = VOLUME_SIZE):
+    """(train, val, test, train_len, val_len) 3-D pairs (dataset.py:100-167)
+    on ``device``, from the ``*.img`` Analyze volumes of ``data_dir``."""
+    items = [{"image": p} for p in sorted(glob(os.path.join(data_dir, "*.img")))]
+    train_v, val_v, test_v = split_volumes(items, val_frac, test_frac, seed,
+                                           limit)
+    dev = torch.device(device)
+    mk = lambda vols, split: VolumePairDataset(vols, batch_size, (seed, split),
+                                               dev, tuple(size))
+    return (mk(train_v, 0), mk(val_v, 1), mk(test_v, 2), len(train_v),
+            len(val_v))

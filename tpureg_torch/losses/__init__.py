@@ -1,10 +1,16 @@
 from .ofe import (
+    Affloss,
+    DEFloss3D,
     OFEloss,
     charbonnier,
     correlation_loss,
+    correlation_loss_3d,
     photometric_loss,
+    photometric_loss_3d,
     smoothness_loss,
+    smoothness_loss_3d,
 )
 
-__all__ = ["OFEloss", "charbonnier", "correlation_loss", "photometric_loss",
-           "smoothness_loss"]
+__all__ = ["Affloss", "DEFloss3D", "OFEloss", "charbonnier", "correlation_loss",
+           "correlation_loss_3d", "photometric_loss", "photometric_loss_3d",
+           "smoothness_loss", "smoothness_loss_3d"]

@@ -13,6 +13,11 @@
   factor, and corr = 1 when either side is constant.
 
 NCHW: images [B, 1, H, W], flows [B, 2, h, w].
+
+The volumetric losses (ofe.py:61-63, :103-105, :156-207 there) take NCDHW
+volumes [B, 1, D, H, W] and flows [B, 3, D, H, W] at one scale, with no
+resize: ``DEFloss3D`` for the deformable model, ``Affloss`` for the affine
+stage.
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ import torch
 
 from ..ops.resize import resize2d
 
-__all__ = ["charbonnier", "photometric_loss", "smoothness_loss",
-           "correlation_loss", "OFEloss"]
+__all__ = ["charbonnier", "photometric_loss", "photometric_loss_3d",
+           "smoothness_loss", "smoothness_loss_3d", "correlation_loss",
+           "correlation_loss_3d", "OFEloss", "DEFloss3D", "Affloss"]
 
 
 def charbonnier(x, alpha: float = 0.25, epsilon: float = 1.0e-9):
@@ -99,3 +105,53 @@ def OFEloss(
     c_loss = zeta / n * c_loss
     s_loss = lamb_da / n * s_loss
     return p_loss, c_loss, s_loss, p_loss + s_loss + c_loss
+
+
+def photometric_loss_3d(fixed, warped):
+    """Charbonnier photometric difference of two volumes, summed, per batch
+    element; no resize (reference loss.py:16-18)."""
+    return torch.sum(charbonnier(fixed - warped)) / fixed.shape[0]
+
+
+def correlation_loss_3d(fixed, warped):
+    """1 - global Pearson of two volumes, no resize (reference loss.py:38-50)."""
+    return _pearson_one_minus(fixed, warped, warped.shape[0])
+
+
+def smoothness_loss_3d(flow):
+    """Charbonnier of zero-padded forward differences of ``flow``
+    [B, 3, D, H, W] along each spatial axis, summed over the three
+    components / 3, per batch element: the 2-D construction, far faces
+    penalising the raw flow."""
+    s = 0.0
+    for axis in (2, 3, 4):
+        n = flow.shape[axis]
+        shifted = torch.cat([flow.narrow(axis, 1, n - 1),
+                             torch.zeros_like(flow.narrow(axis, 0, 1))], dim=axis)
+        s = s + charbonnier(flow - shifted)
+    s = torch.sum(s, dim=1) / 3.0
+    return torch.sum(s) / flow.shape[0]
+
+
+def DEFloss3D(
+    flow: torch.Tensor,
+    warped: torch.Tensor,
+    fixed: torch.Tensor,
+    lamb_da: float = 0.5,
+    gamma: float = 100.0,
+    zeta: float = 100.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Deformable 3-D loss → (photo, corr, smooth, total): γ·photometric +
+    ζ·correlation + λ·smoothness, at one scale."""
+    p_loss = gamma * photometric_loss_3d(fixed, warped)
+    c_loss = zeta * correlation_loss_3d(fixed, warped)
+    s_loss = lamb_da * smoothness_loss_3d(flow)
+    return p_loss, c_loss, s_loss, p_loss + c_loss + s_loss
+
+
+def Affloss(warped, fixed, lamb_da: float = 1.0, gamma: float = 1.0):
+    """Affine-stage loss → (photo, corr, total); λ multiplies the correlation
+    term, as in the reference (loss.py:87-94)."""
+    p_loss = gamma * photometric_loss_3d(fixed, warped)
+    c_loss = lamb_da * correlation_loss_3d(fixed, warped)
+    return p_loss, c_loss, p_loss + c_loss

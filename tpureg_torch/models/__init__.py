@@ -2,8 +2,10 @@
 ``tpureg/models/__init__.py``).
 
 The registry keeps tpureg's dispatch: explicit names first, then substring
-matching. Only the FlowNet2 cascade is ported so far; every name that
-resolves to another model raises ``NotImplementedError``.
+matching. Of the 2-D flow estimators only the FlowNet2 cascade is ported so
+far; every name that resolves to another model raises
+``NotImplementedError``. The 3-D models (``VoxelMorph3D``, ``AffineNet3D``)
+are built directly, as tpureg's volumetric CLI builds them.
 """
 
 from __future__ import annotations
@@ -12,14 +14,16 @@ from typing import Optional
 
 import torch
 
+from .affine3d import AffineNet3D, affine_warp3d
 from .flownet2 import FlowNet2
 from .flownet_c import FlowNetC
 from .flownet_fusion import FlowNetFusion
 from .flownet_s import FlowNetS
 from .flownet_sd import FlowNetSD
+from .voxelmorph3d import VoxelMorph3D
 
-__all__ = ["FlowNet2", "FlowNetC", "FlowNetFusion", "FlowNetS", "FlowNetSD",
-           "build_predictor"]
+__all__ = ["AffineNet3D", "FlowNet2", "FlowNetC", "FlowNetFusion", "FlowNetS",
+           "FlowNetSD", "VoxelMorph3D", "affine_warp3d", "build_predictor"]
 
 # tpureg's explicit registry names; "flownet2-nhwc" is the cascade itself
 # here, since the port has only that path

@@ -14,13 +14,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import (
     ConvBlock,
     bias_uniform01,
     init_xavier_uniform,
+    leaky_relu,
     predict_flow,
 )
 from ..ops.correlation import correlation, displacement_count
@@ -72,9 +72,9 @@ class FlowNetC(nn.Module):
         c3b = self.conv3(self.conv2(self.conv1(x2)))
 
         corr = correlation(c3a, c3b, self.max_displacement, self.corr_stride)
-        # flax's leaky_relu: slope 1 at exactly 0, where every displacement
-        # tap of a pixel falls outside the image (F.leaky_relu takes 0.1)
-        corr = torch.where(corr >= 0, corr, corr * 0.1)
+        # flax's slope 1 at exactly 0, where every displacement tap of a
+        # pixel falls outside the image
+        corr = leaky_relu(corr, 0.1)
         merged = torch.cat([self.conv_redir(c3a), corr], dim=1)
 
         c3 = self.conv3_1(merged)

@@ -10,13 +10,16 @@ the counterpart of ``tpureg/nn/layers.py``.
   ``<deconv>.0.*``;
 - ``TorchConvTranspose`` and ``predict_flow``: the bare transposed conv and
   the 3×3 conv to two flow channels;
+- ``conv3d``: a 3-D convolution with flax's padding and initialisers;
 - ``BatchNorm2d``: eps 1e-5, momentum 0.1 (flax's momentum 0.9), whose
   running variance takes the biased batch variance in training, as flax's
-  does (``nn.BatchNorm2d`` takes the unbiased one).
+  does (``nn.BatchNorm2d`` takes the unbiased one);
+- ``leaky_relu``: flax's, whose slope at exactly 0 is 1.
 
 Initialisation follows the package conventions: kaiming_normal(a=0.1) for
 the Pinard lineage, xavier_uniform weights with U(0, 1) biases for NVIDIA's
-flownet2 networks. Draws come from an explicit ``torch.Generator``. Fans
+flownet2 networks, flax's own default (``init_lecun_normal``, zero biases)
+for the 3-D networks. Draws come from an explicit ``torch.Generator``. Fans
 are counted as flax counts them for its (kh, kw, in, out) kernels, so a
 transposed conv's fan-in is its input channels times the window.
 """
@@ -36,13 +39,18 @@ __all__ = [
     "Deconv",
     "TorchConvTranspose",
     "torch_conv",
+    "conv3d",
     "predict_flow",
     "batch_norm",
     "BatchNorm2d",
     "init_kaiming_leaky",
     "init_xavier_uniform",
+    "init_lecun_normal",
+    "init_normal",
+    "leaky_relu",
     "bias_uniform01",
     "bias_zeros",
+    "init_module_",
 ]
 
 # An initialiser fills a weight in place: fn(weight, fan_in, fan_out, generator).
@@ -69,6 +77,37 @@ def init_xavier_uniform() -> WeightInit:
     return init
 
 
+def init_lecun_normal() -> WeightInit:
+    """flax's default kernel initialiser, ``lecun_normal``: a normal
+    truncated at ±2σ whose σ is corrected so that the variance is 1/fan_in."""
+    # std of a unit normal truncated at ±2 (flax's variance_scaling constant)
+    trunc_std = 0.87962566103423978
+
+    def init(weight, fan_in, fan_out, generator):
+        std = math.sqrt(1.0 / fan_in) / trunc_std
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+
+    return init
+
+
+def init_normal(std: float) -> WeightInit:
+    """flax's ``initializers.normal(std)``: N(0, std²) whatever the fans."""
+
+    def init(weight, fan_in, fan_out, generator):
+        weight.normal_(0.0, std, generator=generator)
+
+    return init
+
+
+def leaky_relu(x, negative_slope: float):
+    """flax's ``leaky_relu``: ``where(x >= 0, x, slope·x)``. Its slope at
+    exactly 0 is 1, where ``F.leaky_relu``'s is ``negative_slope``; exact
+    zeros are common (out-of-image correlation taps, zero-initialised biases
+    on the zero background of a volume)."""
+    return torch.where(x >= 0, x, x * negative_slope)
+
+
 def bias_uniform01(bias, generator):
     """torch ``init.uniform_(bias)`` default U(0, 1), a flownet2 quirk."""
     bias.uniform_(0.0, 1.0, generator=generator)
@@ -79,10 +118,14 @@ def bias_zeros(bias, generator):
 
 
 @torch.no_grad()
-def _init_(conv, kernel_init: WeightInit, bias_init: BiasInit, generator):
+def init_module_(conv, kernel_init: WeightInit, bias_init: BiasInit,
+                 generator=None):
+    """Fill a convolution's (1-3 spatial dims, transposed or not) or a dense
+    layer's weight and bias in place, with fans counted as flax counts
+    them; returns the module."""
     w = conv.weight
     window = w[0, 0].numel()
-    if isinstance(conv, nn.ConvTranspose2d):  # (in, out, kh, kw)
+    if isinstance(conv, nn.modules.conv._ConvTransposeNd):  # (in, out, kh, kw)
         fan_in, fan_out = w.shape[0] * window, w.shape[1] * window
     else:  # (out, in, kh, kw)
         fan_in, fan_out = w.shape[1] * window, w.shape[0] * window
@@ -102,7 +145,18 @@ def torch_conv(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
     pad = (kernel_size - 1) // 2 * dilation if padding is None else padding
     conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride, pad, dilation,
                      bias=use_bias)
-    return _init_(conv, kernel_init, bias_init, generator)
+    return init_module_(conv, kernel_init, bias_init, generator)
+
+
+def conv3d(in_ch: int, out_ch: int, kernel_size: int = 3, stride=1,
+           kernel_init: Optional[WeightInit] = None,
+           generator: Optional[torch.Generator] = None) -> nn.Conv3d:
+    """``nn.Conv3d`` with flax's padding (k-1)//2 on each side and flax's
+    default initialisers (lecun_normal kernel, zero bias) unless
+    ``kernel_init`` is given."""
+    conv = nn.Conv3d(in_ch, out_ch, kernel_size, stride, (kernel_size - 1) // 2)
+    return init_module_(conv, kernel_init or init_lecun_normal(), bias_zeros,
+                        generator)
 
 
 def predict_flow(in_ch: int, use_bias: bool = False,
@@ -126,7 +180,7 @@ class TorchConvTranspose(nn.ConvTranspose2d):
                  generator: Optional[torch.Generator] = None):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding,
                          bias=use_bias)
-        _init_(self, kernel_init, bias_init, generator)
+        init_module_(self, kernel_init, bias_init, generator)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -30,7 +30,8 @@ __all__ = ["SOURCES", "DTYPE_CODES", "build", "load", "check", "ptxas_report",
            "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("correlation.cu", "correlation_bwd.cu", "warp2d.cu", "warp2d_grad.cu")
+SOURCES = ("correlation.cu", "correlation_bwd.cu", "warp2d.cu", "warp2d_grad.cu",
+           "warp3d.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpureg_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -138,6 +139,16 @@ def load() -> ctypes.CDLL:
             lib.tpureg_warp2d_dimg.argtypes = [
                 vp, vp, vp, vp, i32, i32, i32, i32, i64, vp]
             lib.tpureg_warp2d_dimg.restype = i32
+            lib.tpureg_warp3d_fwd.argtypes = [
+                vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, vp]
+            lib.tpureg_warp3d_fwd.restype = i32
+            lib.tpureg_warp3d_taps.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                i64, vp]
+            lib.tpureg_warp3d_taps.restype = i32
+            lib.tpureg_warp3d_dvol.argtypes = [
+                vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64, vp]
+            lib.tpureg_warp3d_dvol.restype = i32
             lib.tpureg_error_string.argtypes = [i32]
             lib.tpureg_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -8,6 +8,10 @@ upsampling, and the legacy ``"nearest"`` (``src = floor(i * in/out)``, not
 ``"nearest-exact"``) for FlowNet2's other ×4 upsampling and label maps.
 The resize runs in fp32 and returns the input dtype. NCHW.
 
+``resize_nd`` is the counterpart of ``tpureg/ops/resize.py::resize_nd``
+(:102-128) for NCDHW volumes, with the same conventions, through
+``F.interpolate`` ("trilinear" or "nearest").
+
 ``cubic_resize`` is the counterpart of ``jax.image.resize(method="cubic")``,
 which the elastic synthesis uses to upsample its control grid
 (``tpureg/ops/elastic.py:72``). It is not ``F.interpolate(mode="bicubic")``:
@@ -22,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize2d", "cubic_resize"]
+__all__ = ["resize2d", "resize_nd", "cubic_resize"]
 
 
 def resize2d(x, size, method: str = "bilinear", align_corners: bool = False):
@@ -37,6 +41,25 @@ def resize2d(x, size, method: str = "bilinear", align_corners: bool = False):
                           align_corners=align_corners)
     elif method == "nearest":
         y = F.interpolate(xf, size=(h_out, w_out), mode="nearest")
+    else:
+        raise ValueError(f"unknown resize method: {method}")
+    return y.to(x.dtype)
+
+
+def resize_nd(x, size, method: str = "linear", align_corners: bool = False):
+    """Resize NCDHW ``x`` to ``size=(D_out, H_out, W_out)`` in fp32 (fp64
+    for an fp64 input), returning the input dtype: ``"linear"`` (trilinear,
+    either align_corners) or the legacy ``"nearest"``; the input itself when
+    the size is unchanged."""
+    size = tuple(int(n) for n in size)
+    if tuple(x.shape[2:]) == size:
+        return x
+    xf = x if x.dtype == torch.float64 else x.float()
+    if method in ("linear", "trilinear"):
+        y = F.interpolate(xf, size=size, mode="trilinear",
+                          align_corners=align_corners)
+    elif method == "nearest":
+        y = F.interpolate(xf, size=size, mode="nearest")
     else:
         raise ValueError(f"unknown resize method: {method}")
     return y.to(x.dtype)

@@ -1,18 +1,20 @@
-"""Bilinear backward warping, the 2-D part of ``tpureg/ops/warp.py``.
+"""Bilinear and trilinear backward warping, the counterpart of
+``tpureg/ops/warp.py``.
 
-Two of the reference's grid conventions are on the FlowNet2 path:
+Two of the reference's 2-D grid conventions are ported:
 
 - ``"stn"``: the registration head's spatial transformer, which samples at
   ``p = (flow + xy) * (size-1)/size`` with zero padding;
 - ``"pixel"``: FlowNet2's Resample2d, which samples at ``p = xy + flow``.
 
-The PWC convention and the 3-D functions come with the slices that use
-them. Images are NCHW; flows are ``[B, 2, h, w]`` with channel 0 the x and
-channel 1 the y displacement.
+The PWC convention comes with the slice that uses it. Images are NCHW;
+flows are ``[B, 2, h, w]`` with channel 0 the x and channel 1 the y
+displacement. Volumes are NCDHW; 3-D flows are ``[B, 3, D, H, W]`` with
+channels (u_x, u_y, u_z), tpureg's last axis.
 
-``sample2d`` sends a CUDA image to the hand-written kernels and a CPU image
-to the plain ``sample2d_gather`` and autograd; there is no other route. On
-the card:
+``sample2d`` and ``sample3d`` send a CUDA tensor to the hand-written kernels
+and a CPU tensor to the plain gathers and autograd; there is no other route.
+On the card, in 2-D:
 
 - K3 (``csrc/warp2d.cu``) samples when the positions need no gradient;
 - K4 (``csrc/warp2d_grad.cu``) samples when they do, and returns beside the
@@ -20,6 +22,13 @@ the card:
   positions is ``Σ_c g · base`` (tpureg's ``warp_pallas.py:451-453``);
 - K5 (same file) scatters the cotangent into the image when the image needs
   a gradient.
+
+In 3-D (``csrc/warp3d.cu``), K6a, K6b and K6c play the same three parts.
+tpureg sends only single-channel volumes to its Pallas kernel (warp.py:191)
+and the rest to an XLA gather; here a CUDA volume of any C goes to the
+kernels, so that the scaling-and-squaring compositions, which warp a
+3-channel field and differentiate both the field and the positions, run on
+them too.
 
 ``sample2d_nearest`` (label maps) is a plain gather on both devices.
 """
@@ -32,7 +41,10 @@ from .cuda_lib import DTYPE_CODES, check, load, stream_handle
 
 __all__ = ["base_grid", "sample2d", "sample2d_gather", "sample2d_cuda",
            "sample2d_taps_cuda", "sample2d_dimg_cuda", "sample2d_taps_reference",
-           "sample2d_dimg_reference", "sample2d_nearest", "warp2d"]
+           "sample2d_dimg_reference", "sample2d_nearest", "warp2d",
+           "sample3d", "sample3d_gather", "sample3d_cuda", "sample3d_taps_cuda",
+           "sample3d_dvol_cuda", "sample3d_taps_reference",
+           "sample3d_dvol_reference", "voxel_grid", "warp3d"]
 
 
 def base_grid(h: int, w: int, device=None, dtype=torch.float32):
@@ -43,13 +55,17 @@ def base_grid(h: int, w: int, device=None, dtype=torch.float32):
     return torch.stack([xx, yy], dim=-1)
 
 
+def _compute_dtype(t):
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def sample2d_gather(img, px, py):
     """Plain 4-tap gather: bilinear sample of ``img`` [B,C,H,W] at float
     pixel positions ``px``/``py`` [B, ...]; each tap outside the image
     contributes zero. Returns [B, C, ...] in ``img``'s dtype."""
     b, c, h, w = img.shape
     out_shape = (b, c, *px.shape[1:])
-    compute = torch.float64 if img.dtype == torch.float64 else torch.float32
+    compute = _compute_dtype(img)
     px = px.reshape(b, -1).to(compute)
     py = py.reshape(b, -1).to(compute)
 
@@ -101,23 +117,35 @@ def sample2d_dimg_reference(grad, px, py, image_shape, dtype=torch.float32):
     return dimg.to(dtype)
 
 
-def _check_positions(name, img, px, py):
-    if not (img.is_cuda and px.device == img.device and py.device == img.device):
-        raise ValueError(f"{name} takes image and positions on one CUDA device")
-    if px.dtype != torch.float32 or py.dtype != torch.float32:
+def _check_positions(name, src, *pos):
+    """``src`` (image or volume) and its positions [B,P] on one card, the
+    positions fp32, all contiguous."""
+    if not (src.is_cuda and all(t.device == src.device for t in pos)):
+        raise ValueError(f"{name} takes its input and positions on one CUDA device")
+    if any(t.dtype != torch.float32 for t in pos):
         raise TypeError(f"{name} takes fp32 positions")
-    if px.dim() != 2 or px.shape != py.shape or px.shape[0] != img.shape[0]:
-        raise ValueError(f"{name} takes positions [B,P] for {img.shape[0]} "
-                         f"images, got {tuple(px.shape)}, {tuple(py.shape)}")
-    if not (img.is_contiguous() and px.is_contiguous() and py.is_contiguous()):
+    if pos[0].dim() != 2 or any(t.shape != pos[0].shape for t in pos) \
+            or pos[0].shape[0] != src.shape[0]:
+        raise ValueError(f"{name} takes positions [B,P] for {src.shape[0]} "
+                         f"inputs, got {[tuple(t.shape) for t in pos]}")
+    if not all(t.is_contiguous() for t in (src, *pos)):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _check_image(name, img):
-    if img.dtype not in DTYPE_CODES:
-        raise TypeError(f"{name} takes an fp32 or bf16 image, got {img.dtype}")
-    if img.dim() != 4:
-        raise ValueError(f"{name} takes img [B,C,H,W], got {tuple(img.shape)}")
+def _check_source(name, src, layout):
+    """An fp32 or bf16 image or volume with the dimensions of ``layout``."""
+    if src.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} takes an fp32 or bf16 input, got {src.dtype}")
+    if src.dim() != len(layout):
+        raise ValueError(f"{name} takes [{','.join(layout)}], got {tuple(src.shape)}")
+
+
+def _check_cotangent(name, grad, shape, device):
+    if grad.dtype != torch.float32 or tuple(grad.shape) != shape \
+            or not grad.is_contiguous() or grad.device != device:
+        raise ValueError(f"{name} takes a contiguous fp32 cotangent [B,C,P] = "
+                         f"{shape} on the positions' card, got {grad.dtype} "
+                         f"{tuple(grad.shape)}")
 
 
 def sample2d_cuda(img, px, py):
@@ -126,7 +154,7 @@ def sample2d_cuda(img, px, py):
 
     ``sample2d_cuda.launches`` counts the launches.
     """
-    _check_image("sample2d_cuda", img)
+    _check_source("sample2d_cuda", img, "BCHW")
     _check_positions("sample2d_cuda", img, px, py)
     b, c, h, w = img.shape
     p = px.shape[1]
@@ -151,7 +179,7 @@ def sample2d_taps_cuda(img, px, py):
 
     ``sample2d_taps_cuda.launches`` counts the launches.
     """
-    _check_image("sample2d_taps_cuda", img)
+    _check_source("sample2d_taps_cuda", img, "BCHW")
     _check_positions("sample2d_taps_cuda", img, px, py)
     b, c, h, w = img.shape
     p = px.shape[1]
@@ -182,11 +210,7 @@ def sample2d_dimg_cuda(grad, px, py, image_shape, dtype=torch.float32):
     b, c, h, w = image_shape
     dimg = torch.zeros((b, c, h, w), dtype=torch.float32, device=grad.device)
     _check_positions("sample2d_dimg_cuda", dimg, px, py)
-    if grad.dtype != torch.float32 or grad.shape != (b, c, px.shape[1]) \
-            or not grad.is_contiguous() or grad.device != dimg.device:
-        raise ValueError(f"sample2d_dimg_cuda takes a contiguous fp32 cotangent "
-                         f"[B,C,P] = {(b, c, px.shape[1])} on the positions' "
-                         f"card, got {grad.dtype} {tuple(grad.shape)}")
+    _check_cotangent("sample2d_dimg_cuda", grad, (b, c, px.shape[1]), dimg.device)
     lib = load()
     with torch.cuda.device(dimg.device):
         code = lib.tpureg_warp2d_dimg(
@@ -278,3 +302,211 @@ def warp2d(img, flow, convention: str = "stn"):
     elif convention != "pixel":
         raise ValueError(f"unknown warp convention: {convention}")
     return sample2d(img, px, py)
+
+
+# ---------------------------------------------------------------------------
+# 3-D: trilinear sample of NCDHW volumes
+
+
+def sample3d_gather(vol, px, py, pz):
+    """Plain 8-tap gather: trilinear sample of ``vol`` [B,C,D,H,W] at float
+    voxel positions ``px``/``py``/``pz`` [B, ...]; each corner outside the
+    volume contributes zero. tpureg's order of operations (warp.py:208-245):
+    ``wgt = cx·cy·cz``, then ``value·(wgt·inb)``, summed over dz, dy, dx.
+    Computes in fp32 (fp64 for an fp64 volume); returns [B, C, ...] in
+    ``vol``'s dtype."""
+    b, c, d, h, w = vol.shape
+    out_shape = (b, c, *px.shape[1:])
+    compute = _compute_dtype(vol)
+    px = px.reshape(b, -1).to(compute)
+    py = py.reshape(b, -1).to(compute)
+    pz = pz.reshape(b, -1).to(compute)
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    z0 = torch.floor(pz)
+    fx = px - x0
+    fy = py - y0
+    fz = pz - z0
+    x0i = x0.long()
+    y0i = y0.long()
+    z0i = z0.long()
+    flat = vol.reshape(b, c, d * h * w).to(compute)
+
+    def tap(xi, yi, zi, weight):
+        inb = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+               & (zi >= 0) & (zi <= d - 1))
+        idx = (zi.clamp(0, d - 1) * h + yi.clamp(0, h - 1)) * w + xi.clamp(0, w - 1)
+        vals = torch.gather(flat, 2, idx[:, None, :].expand(b, c, -1))
+        return vals * (weight * inb.to(compute))[:, None, :]
+
+    out = 0.0
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                wgt = ((fx if dx else 1 - fx) * (fy if dy else 1 - fy)
+                       * (fz if dz else 1 - fz))
+                out = out + tap(x0i + dx, y0i + dy, z0i + dz, wgt)
+    return out.reshape(out_shape).to(vol.dtype)
+
+
+def sample3d_taps_reference(vol, px, py, pz):
+    """K6b's plain version: the sample of ``vol`` [B,C,D,H,W] at
+    ``px``/``py``/``pz`` [B,P] and its derivatives ∂out/∂px, ∂out/∂py,
+    ∂out/∂pz [B,C,P], by autograd through ``sample3d_gather``, one channel at
+    a time; fp32 (fp64 for an fp64 volume)."""
+    compute = _compute_dtype(vol)
+    with torch.enable_grad():
+        pos = [t.detach().to(compute).requires_grad_() for t in (px, py, pz)]
+        out = sample3d_gather(vol.to(compute), *pos)
+        bases = [torch.autograd.grad(out[:, c].sum(), pos, retain_graph=True)
+                 for c in range(out.shape[1])]
+    return (out.detach(), *(torch.stack([d[i] for d in bases], 1)
+                            for i in range(3)))
+
+
+def sample3d_dvol_reference(grad, px, py, pz, volume_shape,
+                            dtype=torch.float32):
+    """K6c's plain version: the volume cotangent by autograd through
+    ``sample3d_gather`` (linear in the volume), in fp32, cast to ``dtype``."""
+    with torch.enable_grad():
+        vol = torch.zeros(volume_shape, dtype=torch.float32, device=grad.device,
+                          requires_grad=True)
+        out = sample3d_gather(vol, px, py, pz)
+        (dvol,) = torch.autograd.grad(out, vol, grad.reshape(out.shape).float())
+    return dvol.to(dtype)
+
+
+def sample3d_cuda(vol, px, py, pz):
+    """Launch K6a: ``vol`` [B,C,D,H,W] (fp32 or bf16) at ``px``/``py``/``pz``
+    [B,P] (fp32), all contiguous on one card. Returns [B, C, P] fp32, equal
+    to ``sample3d_gather``'s fp32 result bit for bit.
+
+    ``sample3d_cuda.launches`` counts the launches.
+    """
+    _check_source("sample3d_cuda", vol, "BCDHW")
+    _check_positions("sample3d_cuda", vol, px, py, pz)
+    b, c, d, h, w = vol.shape
+    p = px.shape[1]
+    out = torch.empty((b, c, p), dtype=torch.float32, device=vol.device)
+    lib = load()
+    with torch.cuda.device(vol.device):
+        code = lib.tpureg_warp3d_fwd(
+            vol.data_ptr(), px.data_ptr(), py.data_ptr(), pz.data_ptr(),
+            out.data_ptr(), DTYPE_CODES[vol.dtype], b, c, d, h, w, p,
+            stream_handle(vol))
+    check(code, "3-D warp kernel (K6a)")
+    sample3d_cuda.launches += 1
+    return out
+
+
+sample3d_cuda.launches = 0
+
+
+def sample3d_taps_cuda(vol, px, py, pz):
+    """Launch K6b: K6a's sample of ``vol`` [B,C,D,H,W] at ``px``/``py``/``pz``
+    [B,P], and beside it ∂out/∂px, ∂out/∂py and ∂out/∂pz. Returns four
+    [B, C, P] fp32 tensors; the sample equals K6a's bit for bit.
+
+    ``sample3d_taps_cuda.launches`` counts the launches.
+    """
+    _check_source("sample3d_taps_cuda", vol, "BCDHW")
+    _check_positions("sample3d_taps_cuda", vol, px, py, pz)
+    b, c, d, h, w = vol.shape
+    p = px.shape[1]
+    out, dpx, dpy, dpz = torch.empty((4, b, c, p), dtype=torch.float32,
+                                     device=vol.device).unbind(0)
+    lib = load()
+    with torch.cuda.device(vol.device):
+        code = lib.tpureg_warp3d_taps(
+            vol.data_ptr(), px.data_ptr(), py.data_ptr(), pz.data_ptr(),
+            out.data_ptr(), dpx.data_ptr(), dpy.data_ptr(), dpz.data_ptr(),
+            DTYPE_CODES[vol.dtype], b, c, d, h, w, p, stream_handle(vol))
+    check(code, "3-D warp-with-taps kernel (K6b)")
+    sample3d_taps_cuda.launches += 1
+    return out, dpx, dpy, dpz
+
+
+sample3d_taps_cuda.launches = 0
+
+
+def sample3d_dvol_cuda(grad, px, py, pz, volume_shape, dtype=torch.float32):
+    """Launch K6c: the cotangent of the volume ``volume_shape`` [B,C,D,H,W]
+    from the sample's cotangent ``grad`` [B,C,P] (fp32) at
+    ``px``/``py``/``pz`` [B,P]. Sums in fp32 with atomics (their order varies
+    from run to run) and returns the volume's ``dtype``.
+
+    ``sample3d_dvol_cuda.launches`` counts the launches.
+    """
+    b, c, d, h, w = volume_shape
+    dvol = torch.zeros((b, c, d, h, w), dtype=torch.float32, device=grad.device)
+    _check_positions("sample3d_dvol_cuda", dvol, px, py, pz)
+    _check_cotangent("sample3d_dvol_cuda", grad, (b, c, px.shape[1]), dvol.device)
+    lib = load()
+    with torch.cuda.device(dvol.device):
+        code = lib.tpureg_warp3d_dvol(
+            px.data_ptr(), py.data_ptr(), pz.data_ptr(), grad.data_ptr(),
+            dvol.data_ptr(), b, c, d, h, w, px.shape[1], stream_handle(dvol))
+    check(code, "3-D warp volume-gradient kernel (K6c)")
+    sample3d_dvol_cuda.launches += 1
+    return dvol.to(dtype)
+
+
+sample3d_dvol_cuda.launches = 0
+
+
+class _Sample3dKernel(torch.autograd.Function):
+    """The card's trilinear sample as an autograd node: K6a when the
+    positions need no gradient, else K6b, whose bases the backward multiplies
+    by the cotangent; K6c for the volume's cotangent."""
+
+    @staticmethod
+    def forward(ctx, vol, px, py, pz):
+        ctx.volume = (tuple(vol.shape), vol.dtype)
+        if not any(ctx.needs_input_grad[1:]):
+            ctx.save_for_backward(px, py, pz, None, None, None)
+            return sample3d_cuda(vol, px, py, pz)
+        out, dpx, dpy, dpz = sample3d_taps_cuda(vol, px, py, pz)
+        ctx.save_for_backward(px, py, pz, dpx, dpy, dpz)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        px, py, pz, *bases = ctx.saved_tensors
+        grad = grad.float().contiguous()
+        dvol = None
+        if ctx.needs_input_grad[0]:
+            dvol = sample3d_dvol_cuda(grad, px, py, pz, *ctx.volume)
+        dpos = [(grad * base).sum(1) if need else None
+                for need, base in zip(ctx.needs_input_grad[1:], bases)]
+        return (dvol, *dpos)
+
+
+def sample3d(vol, px, py, pz):
+    """Trilinear sample of NCDHW ``vol`` at float voxel positions (px, py,
+    pz), each [B, ...]; returns [B, C, ...] in ``vol``'s dtype, with each
+    out-of-volume corner contributing zero. Kernels K6a, K6b and K6c on
+    CUDA, the plain gather and autograd on CPU."""
+    if vol.is_cuda:
+        b, c = vol.shape[:2]
+        pos = [t.reshape(b, -1).float().contiguous() for t in (px, py, pz)]
+        out = _Sample3dKernel.apply(vol.contiguous(), *pos)
+        return out.reshape(b, c, *px.shape[1:]).to(vol.dtype)
+    return sample3d_gather(vol, px, py, pz)
+
+
+def voxel_grid(d: int, h: int, w: int, device=None, dtype=torch.float32):
+    """(z, y, x) integer voxel coordinates, each [D, H, W]."""
+    return torch.meshgrid(*(torch.arange(n, dtype=dtype, device=device)
+                            for n in (d, h, w)), indexing="ij")
+
+
+def warp3d(vol, flow):
+    """Backward-warp NCDHW ``vol`` by ``flow`` [B, 3, D, H, W] in voxels,
+    channels (u_x, u_y, u_z): samples at ``p = xyz + flow`` (tpureg's pixel
+    convention, warp.py:248-265). Positions are fp32 (fp64 for an fp64
+    flow)."""
+    _, _, d, h, w = flow.shape
+    compute = _compute_dtype(flow)
+    zz, yy, xx = voxel_grid(d, h, w, flow.device, compute)
+    return sample3d(vol, xx + flow[:, 0].to(compute),
+                    yy + flow[:, 1].to(compute), zz + flow[:, 2].to(compute))

@@ -12,6 +12,8 @@ from .steps import (
     cast_params,
     default_loss_kwargs,
     loss_from_outputs,
+    make_affine_train_step,
+    make_deform3d_train_step,
     make_eval_step,
     make_train_step,
     set_fp32_numerics,
@@ -30,6 +32,8 @@ __all__ = [
     "cast_params",
     "default_loss_kwargs",
     "loss_from_outputs",
+    "make_affine_train_step",
+    "make_deform3d_train_step",
     "make_eval_step",
     "make_train_step",
     "set_fp32_numerics",

@@ -15,6 +15,11 @@ decimal digits.
 
 Each call sets the model's mode: the train step puts it in train mode
 (batch statistics, running-stat updates), the eval step in eval mode.
+
+``make_deform3d_train_step`` and ``make_affine_train_step`` are the
+volumetric steps (tpureg steps.py:345-409): VoxelMorph3D with ``DEFloss3D``
+and AffineNet3D with ``Affloss`` on [B, D, H, W, 2] volumes, in fp32 with
+TF32 off, one Adam update each.
 """
 
 from __future__ import annotations
@@ -24,10 +29,11 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from ..losses import OFEloss
+from ..losses import Affloss, DEFloss3D, OFEloss
 
 __all__ = ["default_loss_kwargs", "loss_from_outputs", "cast_params",
-           "make_train_step", "make_eval_step", "set_fp32_numerics"]
+           "make_train_step", "make_eval_step", "set_fp32_numerics",
+           "make_deform3d_train_step", "make_affine_train_step"]
 
 _TERMS = ("loss", "photo_loss", "corr_loss", "smooth_loss")
 
@@ -178,3 +184,54 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
 
     return train_step
 
+
+def _volume_train_step(state, terms_of):
+    """``train_step(vols) -> metrics``: ``terms_of(model, x)`` gives the
+    metrics of NCDHW ``x`` [B, 2, D, H, W], the total under ``"loss"``; one
+    gradient of it and one Adam update."""
+    set_fp32_numerics()
+    model = state.model
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(vols):
+        model.train()
+        x = vols.permute(0, 4, 1, 2, 3).contiguous()
+        with torch.enable_grad():
+            metrics = terms_of(model, x)
+            grads = torch.autograd.grad(metrics["loss"], params)
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_deform3d_train_step(state, loss_kwargs: Optional[dict] = None):
+    """``train_step(vols) -> metrics`` for a ``TrainState`` around a
+    ``VoxelMorph3D``: ``vols`` [B, D, H, W, 2] (fixed, moving); ``DEFloss3D``
+    of the warped moving volume against the fixed one and of the flow;
+    metrics ``loss``, ``photo_loss``, ``corr_loss``, ``smooth_loss`` (0-d
+    fp32 tensors, detached)."""
+    loss_kwargs = loss_kwargs or {}
+
+    def terms(model, x):
+        flow, warped, _ = model(x)
+        p, c, s, total = DEFloss3D(flow, warped, x[:, 0:1], **loss_kwargs)
+        return {"loss": total, "photo_loss": p, "corr_loss": c, "smooth_loss": s}
+
+    return _volume_train_step(state, terms)
+
+
+def make_affine_train_step(state, loss_kwargs: Optional[dict] = None):
+    """``train_step(vols) -> metrics`` for a ``TrainState`` around an
+    ``AffineNet3D``: ``Affloss`` of the affinely warped moving volume
+    against the fixed one; metrics ``loss``, ``photo_loss``, ``corr_loss``."""
+    loss_kwargs = loss_kwargs or {}
+
+    def terms(model, x):
+        _, warped = model(x)
+        p, c, total = Affloss(warped, x[:, 0:1], **loss_kwargs)
+        return {"loss": total, "photo_loss": p, "corr_loss": c}
+
+    return _volume_train_step(state, terms)
