@@ -45,9 +45,11 @@
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 and K5, ``grid_sampler_3d_backward``
-   for K6b and K6c; K6b also at the deform step's own first-composition
-   positions), the eval and train steps at batch 8 and the 3-D train steps
-   at batch 2, peak memory;
+   for K6b and K6c; K6a also at a composition's shape, K6b also at the
+   deform step's own first-composition positions, K6c at its first and last;
+   K2's bound on the tensor-core pipe it uses beside its fp32-pipe bound),
+   the eval and train steps at batch 8 and the 3-D train steps at batch 2,
+   peak memory;
 10. a torch.profiler breakdown of one eval, one train and one step of each
     3-D stage by kernel group, with the device's idle share.
 
@@ -78,6 +80,7 @@ import torch.nn.functional as F
 from tpureg_torch.cli import inference as cli_inference
 from tpureg_torch.cli import train as cli_train
 from tpureg_torch.cli import train_affine as cli_train_affine
+from tpureg_torch.classical import exp_velocity3d
 from tpureg_torch.data import VOLUME_SIZE
 from tpureg_torch.data.pipeline import _process_volume
 from tpureg_torch.models import AffineNet3D, VoxelMorph3D
@@ -121,6 +124,7 @@ VOL_BATCH = 2                      # the 3-D CLI's default batch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 outside the tensor cores
               torch.bfloat16: 989e12}   # bf16 tensor cores, dense
+TF32_FLOPS = 495e12                     # TF32 tensor cores, dense
 # each kernel's wrapper and its name in the launch counts
 COUNTERS = {"correlation": correlation_cuda,
             "correlation_bwd": correlation_bwd_cuda,
@@ -1186,6 +1190,20 @@ def warp3d_timings(errs, vols, vflow, velocity):
                            "tpureg/ops/warp3d_pallas.py:210", "warp3d_dpos", "deform",
                            errs["warp3d_dpos"]["composition"], ms, plain,
                            warp3d_dpos_work(field, cp), torch.float32, lib))
+    # K6a at the composition: 7 of its 8 launches a deform step run here
+    ms = time_ms(lambda: sample3d_cuda(field, cx, cy, cz), 100)
+    plain = time_ms(lambda: sample3d_gather(field, cx, cy, cz), 3, head_start_ms=300.0)
+    lib_out = F.grid_sample(field, grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=True).reshape(cshape[0], cshape[1], -1)
+    print(f"  grid_sample 5-D yardstick agrees with K6a at the composition to "
+          f"{float((lib_out - sample3d_cuda(field, cx, cy, cz)).abs().max()):.3g}")
+    del lib_out
+    lib = time_ms(lambda: F.grid_sample(field, grid, mode="bilinear",
+                                        padding_mode="zeros", align_corners=True), 100)
+    rows.append(kernel_row("warp3d_composition", "warp3d.cu",
+                           "tpureg/ops/warp3d_pallas.py:210", "warp3d", "deform",
+                           errs["warp3d"]["composition"], ms, plain,
+                           warp3d_work(field, cp), torch.float32, lib))
     dimg_lib, _ = torch.ops.aten.grid_sampler_3d_backward(
         cot.reshape(cshape), field, grid, 0, 0, True, [True, False])
     print(f"  grid_sampler_3d_backward d/dinput agrees with K6c to "
@@ -1228,6 +1246,40 @@ def warp3d_timings(errs, vols, vflow, velocity):
                            "tpureg/ops/warp3d_pallas.py:210", "warp3d_dpos", "deform",
                            err, ms, plain, warp3d_dpos_work(sfield, cp), torch.float32,
                            lib))
+    del spos, grid
+    # K6c at the step's own first and last compositions: the scaled velocity
+    # warped by itself, and the field after six of the seven squarings
+    with torch.no_grad():
+        last = exp_velocity3d(velocity / 2.0, 6).contiguous()
+    for label, f in (("first", sfield), ("last", last)):
+        zz, yy, xx = voxel_grid(d, h, w, DEV)
+        pos = [(t + f[:, k]).reshape(cshape[0], -1).contiguous()
+               for k, t in enumerate((xx, yy, zz))]
+        del zz, yy, xx
+        grid = unit_grid(*pos, tuple(f.shape))
+        want = sample3d_dvol_reference(cot, *pos, cshape)
+        got = sample3d_dvol_cuda(cot, *pos, cshape)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all()),
+                f"K6c disagrees with its plain version at the step's {label} composition")
+        dimg_lib, _ = torch.ops.aten.grid_sampler_3d_backward(
+            cot.reshape(cshape), f, grid, 0, 0, True, [True, False])
+        print(f"  K6c at the step's {label} composition: |displacement| max "
+              f"{float(f.abs().max()):.3g} voxels; max |kernel - plain| = {err:.3g}; "
+              f"grid_sampler_3d_backward d/dinput agrees to "
+              f"{float((dimg_lib - got).abs().max()):.3g}")
+        del want, got, dimg_lib
+        ms = time_ms(lambda: sample3d_dvol_cuda(cot, *pos, cshape), 100)
+        plain = time_ms(lambda: sample3d_dvol_reference(cot, *pos, cshape), 3,
+                        head_start_ms=300.0)
+        lib = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+            cot.reshape(cshape), f, grid, 0, 0, True, [True, False]), 100)
+        rows.append(kernel_row(f"warp3d_dvol_step_{label}", "warp3d.cu",
+                               "tpureg/ops/warp3d_pallas.py:456", "warp3d_dvol", "deform",
+                               err, ms, plain, warp3d_dvol_work(cshape, cp, torch.float32),
+                               torch.float32, lib))
+        del pos, grid
     return rows
 
 
@@ -1259,6 +1311,18 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             "tpureg/ops/correlation_pallas.py:335", "correlation_bwd", "train",
             errs["corr_bwd"][dtype], ms, plain,
             correlation_bwd_work(a.shape, 20, 2, dtype, dtype), dtype, None))
+        # the pipe K2 runs on: three TF32 products a multiply-add for fp32
+        # operands, one bf16 product for bf16
+        nbytes, flops = correlation_bwd_work(a.shape, 20, 2, dtype, dtype)
+        passes, rate = (3, TF32_FLOPS) if dtype == torch.float32 else (1, PEAK_FLOPS[dtype])
+        t_ops = passes * flops / rate * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  correlation_bwd{sfx}: {ms * 1e3:.2f} us; the table's bound "
+              f"{kernels[-1]['bound_ms'] * 1e3:.2f} us ({kernels[-1]['bound_by']}, "
+              f"operations at {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s); on the tensor cores "
+              f"it runs on ({passes} pass{'es' if passes > 1 else ''} at "
+              f"{rate / 1e12:.0f} TFLOP/s) {max(t_ops, t_bytes) * 1e3:.2f} us "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'})")
 
     # the warps at the positions of the eval path: the head's stn warp of the
     # moving image by the fp32 step's fused flow, (x + u) * (W - 1) / W

@@ -108,32 +108,39 @@ K2_CASES = [
     ((2, 64, 16, 20), 4, 1),     # PWC's configuration
     ((1, 40, 9, 37), 20, 2),     # ragged column tile and channel chunk
     ((1, 70, 12, 45), 20, 1),    # K = 41: more shared memory than 48 KB
+    ((2, 64, 64, 64), 4, 1),     # PWC at a width of two column tiles
+    ((1, 32, 16, 80), 20, 2),    # three column tiles, windows clipped at both ends
 ]
 
 
-@pytest.mark.parametrize("shape,md,s2", K2_CASES)
-def test_correlation_backward_fp32_matches_plain(dev, shape, md, s2):
-    g = torch.Generator(device=dev).manual_seed(5)
+def _k2_inputs(dev, shape, md, s2, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
     f1 = torch.randn(shape, device=dev, generator=g)
     f2 = torch.randn(shape, device=dev, generator=g)
     k = 2 * (md // s2) + 1
     grad = torch.randn((shape[0], k * k, *shape[2:]), device=dev, generator=g)
+    return f1, f2, grad
+
+
+@pytest.mark.parametrize("shape,md,s2", K2_CASES)
+def test_correlation_backward_fp32_matches_plain(dev, shape, md, s2):
+    f1, f2, grad = _k2_inputs(dev, shape, md, s2, 5)
     got = correlation_bwd_cuda(f1, f2, grad, md, s2)
     want = correlation_bwd_reference(f1, f2, grad, md, s2)
     torch.cuda.synchronize()
-    # fp32 sums of up to K² unit products in another order, over C
+    # fp32 sums of up to K² unit products in another order, over C (the
+    # products in three TF32 passes, each good to ~2^-22 of its size)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
-def test_correlation_backward_bf16_matches_plain(dev, gdtype):
-    g = torch.Generator(device=dev).manual_seed(6)
-    f1 = torch.randn((8, 256, 32, 32), device=dev, generator=g).bfloat16()
-    f2 = torch.randn((8, 256, 32, 32), device=dev, generator=g).bfloat16()
-    grad = torch.randn((8, 441, 32, 32), device=dev, generator=g).to(gdtype)
-    got = correlation_bwd_cuda(f1, f2, grad, 20, 2)
-    want = correlation_bwd_reference(f1, f2, grad, 20, 2)
+@pytest.mark.parametrize("shape,md,s2", K2_CASES)
+def test_correlation_backward_bf16_matches_plain(dev, shape, md, s2, gdtype):
+    f1, f2, grad = _k2_inputs(dev, shape, md, s2, 6)
+    f1, f2, grad = f1.bfloat16(), f2.bfloat16(), grad.to(gdtype)
+    got = correlation_bwd_cuda(f1, f2, grad, md, s2)
+    want = correlation_bwd_reference(f1, f2, grad, md, s2)
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16
         # one bf16 rounding of fp32 sums taken in another order (whose own
@@ -317,22 +324,55 @@ def _positions3d(dev, b, d, h, w, scale, seed, dz=0.0):
     return [p.reshape(b, -1).contiguous() for p in pos]
 
 
-# (shape, displacement std, uniform z shift): the final warp's volume at a
-# reduced size, a composition's 3-channel field, fault C1's configuration
-# (d = 32, dz = ±8.5) and scattered positions far beyond any TPU window
-WARP3D_CASES = [((2, 1, 44, 64, 64), 0.7, 0.0), ((2, 3, 22, 32, 32), 0.5, 0.0),
-                ((1, 1, 32, 64, 64), 0.3, -8.5), ((1, 1, 32, 64, 64), 0.3, 8.5),
-                ((2, 3, 13, 17, 19), 12.0, 0.0)]
-WARP3D_IDS = ["final", "composition", "c1-neg", "c1-pos", "scattered"]
+def _rearrange3d(pos, mode, seed):
+    """K6c's position layouts: "grid" as made; "outliers", every 97th
+    position moved up to 40 voxels away, so that some bricks' corners
+    overflow K6c's shared-memory window and others do not; "permuted", one
+    random order of the positions (P = D·H·W, but no brick is compact);
+    "prefix", the positions without their last 37 (P ≠ D·H·W)."""
+    dev = pos[0].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if mode == "outliers":
+        far = torch.zeros_like(pos[0], dtype=torch.bool)
+        far[:, ::97] = True
+        return [torch.where(far, p + (torch.rand(p.shape, device=dev, generator=g) - 0.5)
+                            * 80, p).contiguous() for p in pos]
+    if mode == "permuted":
+        order = torch.randperm(pos[0].shape[1], device=dev, generator=g)
+        return [p[:, order].contiguous() for p in pos]
+    if mode == "prefix":
+        return [p[:, :-37].contiguous() for p in pos]
+    return pos
+
+
+# (shape, displacement std, uniform z shift, position layout): the final
+# warp's volume at a reduced size, a composition's 3-channel field, fault
+# C1's configuration (d = 32, dz = ±8.5), scattered positions far beyond any
+# TPU window, and K6c's layouts (sub-voxel displacements, whose merged sums
+# go straight to global atomics; ragged bricks at C = 1 and 3; outliers;
+# permuted positions; P ≠ D·H·W)
+WARP3D_CASES = [((2, 1, 44, 64, 64), 0.7, 0.0, "grid"),
+                ((2, 3, 22, 32, 32), 0.5, 0.0, "grid"),
+                ((1, 1, 32, 64, 64), 0.3, -8.5, "grid"),
+                ((1, 1, 32, 64, 64), 0.3, 8.5, "grid"),
+                ((2, 3, 13, 17, 19), 12.0, 0.0, "grid"),
+                ((2, 3, 22, 32, 32), 0.05, 0.0, "grid"),
+                ((2, 1, 13, 17, 19), 0.4, 0.0, "grid"),
+                ((2, 3, 11, 20, 36), 0.5, 0.0, "grid"),
+                ((2, 3, 22, 32, 32), 0.5, 0.0, "outliers"),
+                ((1, 3, 16, 24, 40), 0.5, 0.0, "permuted"),
+                ((2, 3, 11, 20, 36), 0.5, 0.0, "prefix")]
+WARP3D_IDS = ["final", "composition", "c1-neg", "c1-pos", "scattered", "sub-voxel",
+              "ragged-c1", "ragged-c3", "outliers", "permuted", "prefix"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,scale,dz", WARP3D_CASES, ids=WARP3D_IDS)
-def test_warp3d_kernels_match_plain(dev, dtype, shape, scale, dz):
+@pytest.mark.parametrize("shape,scale,dz,mode", WARP3D_CASES, ids=WARP3D_IDS)
+def test_warp3d_kernels_match_plain(dev, dtype, shape, scale, dz, mode):
     b, c, d, h, w = shape
     g = torch.Generator(device=dev).manual_seed(20)
     vol = torch.rand(shape, device=dev, generator=g).to(dtype)
-    px, py, pz = _positions3d(dev, b, d, h, w, scale, 21, dz)
+    px, py, pz = _rearrange3d(_positions3d(dev, b, d, h, w, scale, 21, dz), mode, 27)
     got = sample3d_cuda(vol, px, py, pz)
     want = sample3d_gather(vol.float(), px, py, pz)
     torch.cuda.synchronize()
