@@ -5,12 +5,16 @@
 1. the card (nvidia-smi name and power limit), versions and TF32 flags;
 2. build the CUDA kernels from ``tpureg_torch/csrc`` and show ptxas's report;
 3. K1 (correlation) and K2 (its backward) against their plain versions at
-   FlowNetC's shape, fp32 and bf16, at PWC's (4, 1) and at a ragged shape;
+   FlowNetC's shape, fp32 and bf16, at PWC's (md 4, s2 1) levels, at a
+   window wider than K1's widest tile, at s2 not dividing md and at ragged
+   shapes;
 4. K3 (bilinear warp), K4 (warp with position-derivative bases) and K5
    (the warp's image cotangent) against their plain versions at 256², B=8,
    on smooth and scattered positions, fp32 and bf16, and with C > 1; K3 also
    where its rows cannot take vector loads (odd P, positions at an
-   odd storage offset), equal to the plain gather and to K4's sample;
+   odd storage offset), equal to the plain gather and to K4's sample; K5
+   also at SyN's compose (1 x 2 x 256²) and PWC's level 2 (8 x 32 x 64²)
+   on smooth fields, at permuted positions and at P != H * W;
 4c. K6a (trilinear 3-D warp), K6b (the positions' cotangent Σ_c g·∂out/∂p)
    and K6c (the volume's cotangent) against their plain versions at the 3-D
    path's shapes (the final warp, 2 x 1 x 176 x 256 x 256; a composition's
@@ -47,7 +51,9 @@
    ``grid_sampler_2d_backward`` for K4 and K5, ``grid_sampler_3d_backward``
    for K6b and K6c; K6a also at a composition's shape, K6b also at the
    deform step's own first-composition positions, K6c at its first and last;
-   K2's bound on the tensor-core pipe it uses beside its fp32-pipe bound),
+   K1's and K2's bounds on the tensor-core pipe they use beside their
+   fp32-pipe bounds; K1 also at PWC's 8 x 64 x 32², md 4, s2 1; K5 also at
+   SyN's and PWC's shapes),
    the eval and train steps at batch 8 and the 3-D train steps at batch 2,
    peak memory;
 10. a torch.profiler breakdown of one eval, one train and one step of each
@@ -410,11 +416,25 @@ def build():
     print(cuda_lib.ptxas_report())
 
 
+# K1's card shapes: FlowNetC; PWC's levels (md 4, s2 1); a window wider
+# than the widest tile; s2 not dividing md (no parity classes); H not a
+# multiple of a block's rows and C = 40, not a multiple of 16; more
+# channels than shared memory holds (staged in chunks)
+K1_CASES = (((BATCH, 256, 32, 32), 20, 2),
+            ((BATCH, 64, 32, 32), 4, 1),
+            ((BATCH, 196, 4, 4), 4, 1),
+            ((2, 32, 64, 64), 4, 1),
+            ((1, 32, 16, 80), 20, 2),
+            ((2, 24, 13, 29), 3, 2),
+            ((1, 40, 9, 37), 20, 2),
+            ((1, 1280, 4, 40), 4, 1))
+
+
 def check_correlation():
     phase("3. K1 correlation against its plain version")
     errs = {}
     g = torch.Generator(device=DEV).manual_seed(0)
-    for shape, md, s2 in (((BATCH, 256, 32, 32), 20, 2), ((BATCH, 64, 32, 32), 4, 1)):
+    for shape, md, s2 in K1_CASES:
         f1 = torch.randn(shape, device=DEV, generator=g)
         f2 = torch.randn(shape, device=DEV, generator=g)
         for dtype in (torch.float32, torch.bfloat16):
@@ -435,7 +455,7 @@ def check_correlation():
             print(f"  {tuple(shape)} md {md} s2 {s2} {str(dtype)[6:]}: "
                   f"max |kernel - plain| = {err:.3g} (tolerance {tol})")
             require(ok, f"K1 disagrees with its plain version ({dtype}, md {md})")
-            if (md, s2) == (20, 2):
+            if shape == K1_CASES[0][0]:
                 errs[dtype] = err
     return errs
 
@@ -491,6 +511,19 @@ def warp_inputs(dtype, seed=1, scale=60.0, shape=(BATCH, 1, SIZE, SIZE)):
     px = (torch.arange(w, device=DEV, dtype=torch.float32) + flow[:, 0])
     py = (torch.arange(h, device=DEV, dtype=torch.float32)[:, None] + flow[:, 1])
     return img, px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
+
+
+def smooth_positions(b, h, w, amp, seed):
+    """Positions [B, P] at the pixel grid plus a smooth displacement of
+    about ``amp`` px: bicubic upsampling of N(0, amp²) noise on a grid 16
+    times coarser (SyN's compositions and PWC's feature warps)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    coarse = torch.randn((b, 2, max(h // 16, 2), max(w // 16, 2)), device=DEV,
+                         generator=g) * amp
+    flow = F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=True)
+    px = torch.arange(w, device=DEV, dtype=torch.float32) + flow[:, 0]
+    py = torch.arange(h, device=DEV, dtype=torch.float32)[:, None] + flow[:, 1]
+    return px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
 
 
 def offset_view(t):
@@ -562,28 +595,52 @@ def check_warp_grads():
                   f"{base_err:.3g} (tolerance 1e-6 abs + 1e-5 rel)")
             require(exact and bases_ok, f"K4 disagrees ({label}, {dtype})")
 
-            b, c, h, w = shape
-            grad = torch.randn((b, c, px.shape[1]), device=DEV,
-                               generator=torch.Generator(device=DEV).manual_seed(8))
-            got = sample2d_dimg_cuda(grad, px, py, shape, dtype).float()
-            ref = sample2d_dimg_reference(grad, px, py, shape, dtype).float()
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            if dtype == torch.float32:
-                # fp32 sums of the same products, added by atomics in an
-                # order that changes from run to run
-                tol, ok = "1e-5 abs + 1e-5 rel", bool(
-                    ((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
-            else:
-                tol, ok = "2^-7 rel + 1e-5", bool(
-                    ((got - ref).abs() <= 2.0**-7 * ref.abs() + 1e-5).all())
-            print(f"  K5 {shape} {label} {str(dtype)[6:]}: max |kernel - plain| "
-                  f"= {err:.3g} (tolerance {tol})")
-            require(ok, f"K5 disagrees ({label}, {dtype})")
+            err = check_dimg(f"{shape} {label}", shape, px, py, dtype)
             if label == "smooth":
                 errs["taps"][dtype] = base_err
                 errs["dimg"][dtype] = err
+    # K5 alone at the shapes of the 2-D paths to come: SyN's compose of a
+    # smooth 2-channel field and PWC's level-2 feature warp; and positions
+    # in any layout: permuted, and RAFT's gather lookups (P != H * W)
+    for label, shape, amp, layout in (("SyN compose", (1, 2, SIZE, SIZE), 2.0, "grid"),
+                                      ("PWC level 2", (BATCH, 32, 64, 64), 2.0, "grid"),
+                                      ("permuted", (2, 3, 64, 64), 2.0, "permuted"),
+                                      ("P != H*W", (512, 1, 16, 16), 4.0, "P=81")):
+        b, c, h, w = shape
+        px, py = smooth_positions(b, h, w, amp, seed=9)
+        if layout == "permuted":
+            perm = torch.randperm(h * w, device=DEV,
+                                  generator=torch.Generator(device=DEV).manual_seed(10))
+            px, py = px[:, perm].contiguous(), py[:, perm].contiguous()
+        elif layout == "P=81":
+            px, py = px[:, :81].contiguous(), py[:, :81].contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            check_dimg(f"{shape} {label}, P={px.shape[1]}", shape, px, py, dtype)
     return errs
+
+
+def check_dimg(label, shape, px, py, dtype):
+    """K5 against its plain version on a seeded cotangent; returns the
+    largest difference."""
+    b, c, h, w = shape
+    grad = torch.randn((b, c, px.shape[1]), device=DEV,
+                       generator=torch.Generator(device=DEV).manual_seed(8))
+    got = sample2d_dimg_cuda(grad, px, py, shape, dtype).float()
+    ref = sample2d_dimg_reference(grad, px, py, shape, dtype).float()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if dtype == torch.float32:
+        # fp32 sums of the same products, merged in registers and added by
+        # atomics in an order that changes from run to run
+        tol, ok = "1e-5 abs + 1e-5 rel", bool(
+            ((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+    else:
+        tol, ok = "2^-7 rel + 1e-5", bool(
+            ((got - ref).abs() <= 2.0**-7 * ref.abs() + 1e-5).all())
+    print(f"  K5 {label} {str(dtype)[6:]}: max |kernel - plain| = {err:.3g} "
+          f"(tolerance {tol})")
+    require(ok, f"K5 disagrees ({label}, {dtype})")
+    return err
 
 
 # the 3-D path's shapes: the final warp of the moving volume and one
@@ -1283,6 +1340,56 @@ def warp3d_timings(errs, vols, vflow, velocity):
     return rows
 
 
+def tensor_core_bound(label, row, ms, nbytes, flops, dtype):
+    """Print a row's bound on the tensor-core pipe that K1 and K2 run on
+    beside the table's fp32-pipe bound: three TF32 products a multiply-add
+    for fp32 operands, one bf16 product for bf16."""
+    passes, rate = (3, TF32_FLOPS) if dtype == torch.float32 else (1, PEAK_FLOPS[dtype])
+    t_ops = passes * flops / rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  {label}: {ms * 1e3:.2f} us; the table's bound "
+          f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+          f"operations at {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s); on the tensor cores "
+          f"it runs on ({passes} pass{'es' if passes > 1 else ''} at "
+          f"{rate / 1e12:.0f} TFLOP/s) {max(t_ops, t_bytes) * 1e3:.2f} us "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+
+
+def dimg_timings():
+    """K5 at the shapes of the 2-D paths to come, at smooth positions:
+    SyN's compose of a 2-channel field at 256² and PWC's level-2 feature
+    warp, with ``grid_sampler_2d_backward`` d/dinput as the yardstick (fp32)."""
+    rows = []
+    for name, shape in (("syn", (1, 2, SIZE, SIZE)), ("pwc", (BATCH, 32, 64, 64))):
+        b, c, h, w = shape
+        px, py = smooth_positions(b, h, w, 2.0, seed=23)
+        p = px.shape[1]
+        cot = torch.randn((b, c, p), device=DEV,
+                          generator=torch.Generator(device=DEV).manual_seed(24))
+        grid = torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1],
+                           -1).reshape(b, h, w, 2)
+        img = torch.zeros(shape, device=DEV)
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            err = check_dimg(f"{shape} {name}", shape, px, py, dtype)
+            lib = None
+            if dtype == torch.float32:
+                dimg_lib, _ = torch.ops.aten.grid_sampler_2d_backward(
+                    cot.reshape(shape), img, grid, 0, 0, True, [True, False])
+                got = sample2d_dimg_cuda(cot, px, py, shape, dtype)
+                print(f"  grid_sampler_2d_backward d/dinput agrees with K5 at {shape} to "
+                      f"{float((dimg_lib - got).abs().max()):.3g}")
+                lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    cot.reshape(shape), img, grid, 0, 0, True, [True, False]), 200)
+            ms = time_ms(lambda: sample2d_dimg_cuda(cot, px, py, shape, dtype), 200)
+            plain = time_ms(lambda: sample2d_dimg_reference(cot, px, py, shape, dtype),
+                            10, head_start_ms=100.0)
+            rows.append(kernel_row(
+                f"warp2d_dimg_{name}{sfx}", "warp2d_grad.cu",
+                "tpureg/ops/warp_pallas.py:230", "warp2d_dimg", "train", err, ms, plain,
+                warp_dimg_work(shape, p, dtype), torch.float32, lib))
+    return rows
+
+
 def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             vol_steps, vols, vflow, velocity):
     phase("9. timings (CUDA events, back-to-back launches queued ahead, warm L2)")
@@ -1302,6 +1409,27 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             f"tpureg/ops/correlation_pallas.py:{line}", "correlation", "eval",
             errs["corr"][dtype], ms, plain,
             correlation_work(a.shape, 20, 2, dtype), dtype, None))
+        tensor_core_bound(f"correlation{sfx}", kernels[-1], ms,
+                          *correlation_work(a.shape, 20, 2, dtype), dtype)
+        # K1 at PWC's configuration (81 displacements, 5 launches a forward
+        # of the PWC family, which is not ported yet)
+        pshape = (BATCH, 64, 32, 32)
+        pg = torch.Generator(device=DEV).manual_seed(25)
+        pa = torch.randn(pshape, device=DEV, generator=pg).to(dtype)
+        pb = torch.randn(pshape, device=DEV, generator=pg).to(dtype)
+        got = correlation_cuda(pa, pb, 4, 1).float()
+        want = correlation_reference(pa, pb, 4, 1).float()
+        perr = float((got - want).abs().max())
+        pms = time_ms(lambda: correlation_cuda(pa, pb, 4, 1), 200)
+        pplain = time_ms(lambda: correlation_reference(pa, pb, 4, 1), 3,
+                         head_start_ms=300.0)
+        kernels.append(kernel_row(
+            "correlation_pwc" + sfx, "correlation.cu",
+            f"tpureg/ops/correlation_pallas.py:{line}", "correlation", "eval", perr,
+            pms, pplain, correlation_work(pshape, 4, 1, dtype), dtype, None))
+        tensor_core_bound(f"correlation_pwc{sfx} {pshape} md 4 s2 1", kernels[-1], pms,
+                          *correlation_work(pshape, 4, 1, dtype), dtype)
+        del pa, pb, got, want
         # K2 on the cotangent of the train step's dtype
         ms = time_ms(lambda: correlation_bwd_cuda(a, b, gr, 20, 2), 50)
         plain = time_ms(lambda: correlation_bwd_reference(a, b, gr, 20, 2), 3,
@@ -1311,18 +1439,8 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             "tpureg/ops/correlation_pallas.py:335", "correlation_bwd", "train",
             errs["corr_bwd"][dtype], ms, plain,
             correlation_bwd_work(a.shape, 20, 2, dtype, dtype), dtype, None))
-        # the pipe K2 runs on: three TF32 products a multiply-add for fp32
-        # operands, one bf16 product for bf16
-        nbytes, flops = correlation_bwd_work(a.shape, 20, 2, dtype, dtype)
-        passes, rate = (3, TF32_FLOPS) if dtype == torch.float32 else (1, PEAK_FLOPS[dtype])
-        t_ops = passes * flops / rate * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"  correlation_bwd{sfx}: {ms * 1e3:.2f} us; the table's bound "
-              f"{kernels[-1]['bound_ms'] * 1e3:.2f} us ({kernels[-1]['bound_by']}, "
-              f"operations at {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s); on the tensor cores "
-              f"it runs on ({passes} pass{'es' if passes > 1 else ''} at "
-              f"{rate / 1e12:.0f} TFLOP/s) {max(t_ops, t_bytes) * 1e3:.2f} us "
-              f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+        tensor_core_bound(f"correlation_bwd{sfx}", kernels[-1], ms,
+                          *correlation_bwd_work(a.shape, 20, 2, dtype, dtype), dtype)
 
     # the warps at the positions of the eval path: the head's stn warp of the
     # moving image by the fp32 step's fused flow, (x + u) * (W - 1) / W
@@ -1398,6 +1516,7 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             "warp2d_dimg" + sfx, "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:230",
             "warp2d_dimg", "train", errs["dimg"][dtype], ms, plain,
             warp_dimg_work(shape, p, dtype), torch.float32, lib_dimg))
+    kernels += dimg_timings()
     kernels += warp3d_timings(errs["warp3d"], vols, vflow, velocity)
     for row in kernels:
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"

@@ -161,7 +161,7 @@ def _port_warp_grads(img, px, py, g):
     return _nhwc(im.grad), x.grad[:, 0].numpy(), y.grad[:, 0].numpy()
 
 
-@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("c", [1, 2, 3, 32])   # K5's channel counts: SyN 2, PWC 32
 def test_warp_grads_match_jax_vjp(c):
     img, px, py, g = _warp_inputs(5, b=2, c=c)
     got = _port_warp_grads(img, px, py, g)

@@ -57,30 +57,45 @@ def _bf16_close(got, want, atol=1e-6):
 # ---------------------------------------------------------------------------
 # K1: correlation
 
-@pytest.mark.parametrize("shape,md,s2", [
+K1_CASES = [
     ((8, 256, 32, 32), 20, 2),   # FlowNetC at 256²
     ((2, 64, 16, 20), 4, 1),     # PWC's configuration
     ((1, 40, 9, 37), 20, 2),     # ragged column tile
     ((1, 16, 12, 45), 20, 1),    # K = 41: two tiles of displacements
-])
+    ((1, 32, 16, 80), 20, 2),    # the window outgrows the widest tile
+    ((8, 196, 4, 4), 4, 1),      # PWC's levels: 4², 32², 64²
+    ((8, 64, 32, 32), 4, 1),
+    ((2, 32, 64, 64), 4, 1),
+    ((2, 24, 13, 29), 3, 2),     # s2 does not divide md: no parity classes
+    ((1, 16, 7, 33), 20, 2),     # H = 7: not a multiple of a block's rows
+    ((2, 40, 16, 16), 4, 2),     # C = 40, not a multiple of 16
+    ((1, 1280, 4, 40), 4, 1),    # channels in chunks: more than shared memory holds
+]
+
+
+def _k1_inputs(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, device=dev, generator=g),
+            torch.randn(shape, device=dev, generator=g))
+
+
+@pytest.mark.parametrize("shape,md,s2", K1_CASES)
 def test_correlation_fp32_matches_plain(dev, shape, md, s2):
-    g = torch.Generator(device=dev).manual_seed(0)
-    f1 = torch.randn(shape, device=dev, generator=g)
-    f2 = torch.randn(shape, device=dev, generator=g)
+    f1, f2 = _k1_inputs(dev, shape, 0)
     got = correlation_cuda(f1, f2, md, s2)
     want = correlation_reference(f1, f2, md, s2)
     torch.cuda.synchronize()
-    # fp32 sums of C unit products in another order: ~1e-6 of sqrt(C)/C
+    # fp32 sums of C unit products in another order (the products in three
+    # TF32 passes, each good to ~2^-22 of its size): ~1e-6 of sqrt(C)/C
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
-def test_correlation_bf16_matches_plain(dev):
-    g = torch.Generator(device=dev).manual_seed(1)
-    f1 = torch.randn((8, 256, 32, 32), device=dev, generator=g).bfloat16()
-    f2 = torch.randn((8, 256, 32, 32), device=dev, generator=g).bfloat16()
-    got = correlation_cuda(f1, f2, 20, 2)
+@pytest.mark.parametrize("shape,md,s2", K1_CASES)
+def test_correlation_bf16_matches_plain(dev, shape, md, s2):
+    f1, f2 = (t.bfloat16() for t in _k1_inputs(dev, shape, 1))
+    got = correlation_cuda(f1, f2, md, s2)
     assert got.dtype == torch.bfloat16
-    _bf16_close(got, correlation_reference(f1, f2, 20, 2))
+    _bf16_close(got, correlation_reference(f1, f2, md, s2))
 
 
 def test_correlation_dispatch_launches_kernel(dev):
@@ -98,6 +113,11 @@ def test_correlation_refuses_what_the_kernel_does_not_take(dev):
         correlation_cuda(f[:, :, :, ::2], f[:, :, :, ::2], 2, 1)
     with pytest.raises(ValueError):
         correlation_bwd_cuda(f, f, torch.zeros((1, 9, 6, 7), device=dev), 1, 1)
+    # K1 takes a band of at most 8 n8 tiles a tile of 16 output columns
+    # (md 20 at s2 1 on any width); md 28 at s2 1 on a wide map is refused
+    wide = torch.randn((1, 8, 4, 100), device=dev)
+    with pytest.raises(RuntimeError):
+        correlation_cuda(wide, wide, 28, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +302,59 @@ def test_warp_dimg_matches_plain(dev, dtype, shape, scale):
     if dtype == torch.float32:
         # fp32 sums of the same products, added by atomics in an order that
         # changes from run to run: a few roundings of sums of order 1-10
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(got, want, atol=1e-5)
+
+
+def _smooth_positions(dev, b, h, w, amp, seed):
+    """The pixel grid plus a smooth displacement of about ``amp`` px (bicubic
+    upsampling of noise on a grid 16 times coarser)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    coarse = torch.randn((b, 2, max(h // 16, 2), max(w // 16, 2)), device=dev,
+                         generator=g) * amp
+    flow = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bicubic",
+                                           align_corners=True)
+    px = torch.arange(w, device=dev, dtype=torch.float32) + flow[:, 0]
+    py = torch.arange(h, device=dev, dtype=torch.float32)[:, None] + flow[:, 1]
+    return px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,layout", [
+    ((1, 2, 256, 256), "smooth"),      # SyN's compose of a 2-channel field
+    ((8, 32, 64, 64), "smooth"),       # PWC's level-2 feature warp
+    ((2, 3, 40, 70), "identity"),      # every position on its pixel
+    ((2, 3, 40, 70), "subpixel"),      # a uniform sub-pixel shift
+    ((2, 3, 64, 64), "permuted"),      # smooth positions in a random order
+    ((512, 1, 16, 16), "P=81"),        # RAFT's lookups: P != H * W
+])
+def test_warp_dimg_any_layout_matches_plain(dev, dtype, shape, layout):
+    b, c, h, w = shape
+    px, py = _smooth_positions(dev, b, h, w, 2.0, seed=15)
+    if layout == "identity":
+        base = torch.arange(h * w, device=dev)
+        px = (base % w).float().expand(b, -1).contiguous()
+        py = (base // w).float().expand(b, -1).contiguous()
+    elif layout == "subpixel":
+        base = torch.arange(h * w, device=dev)
+        px = ((base % w).float() + 0.3).expand(b, -1).contiguous()
+        py = ((base // w).float() - 0.6).expand(b, -1).contiguous()
+    elif layout == "permuted":
+        perm = torch.randperm(h * w, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(16))
+        px, py = px[:, perm].contiguous(), py[:, perm].contiguous()
+    elif layout == "P=81":
+        px, py = px[:, :81].contiguous(), py[:, :81].contiguous()
+    grad = torch.randn((b, c, px.shape[1]), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(17))
+    got = sample2d_dimg_cuda(grad, px, py, shape, dtype)
+    want = sample2d_dimg_reference(grad, px, py, shape, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        # fp32 sums of the same products, merged in registers and added by
+        # atomics in an order that changes from run to run
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     else:
         _bf16_close(got, want, atol=1e-5)

@@ -70,6 +70,23 @@ def test_correlation_matches_pallas_interpret():
     np.testing.assert_allclose(_nhwc(got), want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("md,s2", [(20, 2), (4, 1)])
+def test_correlation_bf16_matches_banded_pallas_interpret(md, s2):
+    """K1b's function: the port's plain version on bf16 operands against
+    tpureg's banded-MXU forward (``_corr_fwd_banded``) run by the Pallas
+    interpreter, at tpureg's own tolerance for it
+    (tests/test_pallas_interpret.py:48-56): tpureg rounds the product M to
+    bf16 once per channel slab, the port rounds the fp32 sum once."""
+    f1, f2 = _feats(4, (1, 16, 16, 24))
+    a, b = (jnp.asarray(x).astype(jnp.bfloat16) for x in (f1, f2))
+    want = cp._corr_fwd_banded(a, b, md, s2, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    got = correlation_reference(_nchw(f1).bfloat16(), _nchw(f2).bfloat16(), md, s2)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_nhwc(got.float()), np.asarray(want, np.float32),
+                               atol=3e-2, rtol=2e-2)
+
+
 def test_correlation_cpu_dispatch_is_the_plain_version():
     f1, f2 = (_nchw(a) for a in _feats(2, (1, 6, 6, 4)))
     assert torch.equal(correlation(f1, f2, 2, 1),

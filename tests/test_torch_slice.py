@@ -206,9 +206,13 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 # ---------------------------------------------------------------------------
 # the port imports neither JAX nor tpureg
 
+# the root scripts that run on the card
+ROOT_SCRIPTS = ("chip_smoke.py", "ab_warp2d.py", "ab_warp3d_dvol.py", "ab_correlation.py")
+
+
 def _port_sources():
     files = sorted((ROOT / "tpureg_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "ab_warp2d.py"]
+    return files + [ROOT / name for name in ROOT_SCRIPTS]
 
 
 def test_port_imports_load_no_jax():
@@ -219,8 +223,8 @@ def test_port_imports_load_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "import runpy; runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
-        "runpy.run_path('ab_warp2d.py', run_name='ab_warp2d')\n"
+        "import runpy\n"
+        f"for f in {ROOT_SCRIPTS!r}: runpy.run_path(f, run_name=f[:-3])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpureg'))\n"
         "assert not bad, bad\n"

@@ -209,8 +209,9 @@ sample2d_taps_cuda.launches = 0
 def sample2d_dimg_cuda(grad, px, py, image_shape, dtype=torch.float32):
     """Launch K5: the cotangent of the image ``image_shape`` [B,C,H,W] from
     the sample's cotangent ``grad`` [B,C,P] (fp32) at ``px``/``py`` [B,P].
-    Sums in fp32 with atomics (their order varies from run to run) and
-    returns the image's ``dtype``.
+    Sums in fp32: neighbouring positions' products are merged in registers
+    and added with atomics (their order varies from run to run) into the
+    zeroed buffer, which is cast to the image's ``dtype``.
 
     ``sample2d_dimg_cuda.launches`` counts the launches.
     """
