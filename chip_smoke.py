@@ -46,6 +46,18 @@
 8d. the 3-D CLI: ``--stage affine`` on 10 phantom Analyze volumes (two K6a
    launches a batch, one in the synthesis) and ``--stage deform
    --synthetic 2``;
+8e. the 2-D classical comparator: ``register_syn`` at 256², batch 1,
+   (10, 0, 0), masked by fixed > 0, on a phantom and its elastic
+   deformation: 70 K4, 60 K5 and 7 K3 launches; the local NCC rises; the
+   card's flow and warped image held against the CPU's plain path;
+8f. the comparator CLI (``tpureg_torch.cli.inference_ants``) in ``--mode
+   real`` and ``--mode synthetic`` on phase 6's phantom volumes: finite
+   metrics, the SyN launches once a pair, mean Dice above identity's on
+   the same pairs, pairs per second;
+8g. the 3-D comparator: ``register_syn3d`` at 176 x 256 x 256, batch 1,
+   (30, 20, 10), on two phantom heads: 427 K6a, 420 K6b and 360 K6c
+   launches; the first call's time, the negative-Jacobian fraction; at
+   32 x 64 x 64 and (10, 0, 0) the card held against the CPU's plain path;
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 and K5, ``grid_sampler_3d_backward``
@@ -53,11 +65,13 @@
    deform step's own first-composition positions, K6c at its first and last;
    K1's and K2's bounds on the tensor-core pipe they use beside their
    fp32-pipe bounds; K1 also at PWC's 8 x 64 x 32², md 4, s2 1; K5 also at
-   SyN's and PWC's shapes),
+   SyN's and PWC's shapes; K3, K4, K5 and K6a-c at the comparators' own
+   compositions),
    the eval and train steps at batch 8 and the 3-D train steps at batch 2,
-   peak memory;
+   whole 2-D and 3-D registrations, peak memory;
 10. a torch.profiler breakdown of one eval, one train and one step of each
-    3-D stage by kernel group, with the device's idle share.
+    3-D stage, and of one 2-D and one 3-D registration, by kernel group,
+    with the device's idle share.
 
 The line before the last is the kernel table as JSON, the one before it the
 card; the last line is ``{"ok": true, "device": {...}}``. Any failed phase
@@ -85,12 +99,17 @@ import torch.nn.functional as F
 
 from tpureg_torch.cli import inference as cli_inference
 from tpureg_torch.cli import train as cli_train
+from tpureg_torch.cli import inference_ants as cli_ants
 from tpureg_torch.cli import train_affine as cli_train_affine
-from tpureg_torch.classical import exp_velocity3d
-from tpureg_torch.data import VOLUME_SIZE
-from tpureg_torch.data.pipeline import _process_volume
+from tpureg_torch.classical import exp_velocity3d, register_syn, register_syn3d
+from tpureg_torch.classical.syn import exp_velocity, local_ncc
+from tpureg_torch.classical.syn3d import local_ncc3d
+from tpureg_torch.data import VOLUME_SIZE, eval_random_dataset, real_pairs_dataset
+from tpureg_torch.data.pipeline import _minmax_scale_volume, _process_volume
+from tpureg_torch.metrics import dice_average, neg_jacobian_fraction
 from tpureg_torch.models import AffineNet3D, VoxelMorph3D
-from tpureg_torch.ops import cuda_lib
+from tpureg_torch.ops import cuda_lib, resize2d, resize_nd
+from tpureg_torch.ops.elastic import rand_elastic_2d
 from tpureg_torch.ops.correlation import (
     correlation_bwd_cuda,
     correlation_bwd_reference,
@@ -161,6 +180,16 @@ AFFINE_LAUNCHES = launches_of(warp3d=2, warp3d_dpos=1)
 # warped fields need a gradient too (K6c); the final warp's volume is an
 # input
 DEFORM_LAUNCHES = launches_of(warp3d=8, warp3d_dpos=8, warp3d_dvol=7)
+# register_syn, (10, 0, 0): each of the 10 iterations at 64² runs 6
+# compositions whose field and positions need a gradient (K4 forward, K5
+# backward) and the moving image's warp, whose positions do (K4); the
+# final exponential and warp at 256² run under no_grad (6 + 1 K3)
+SYN_LAUNCHES = launches_of(warp2d=7, warp2d_taps=70, warp2d_dimg=60)
+# register_syn3d, (30, 20, 10): each of the 60 iterations runs 6
+# compositions (K6a; K6b and K6c backward) and the moving volume's warp
+# (K6a; K6b); the final exponential and warp run K6a only (6 + 1)
+SYN3D_LAUNCHES = launches_of(warp3d=60 * 7 + 7, warp3d_dpos=60 * 7,
+                             warp3d_dvol=60 * 6)
 
 
 def require(cond, msg):
@@ -759,29 +788,34 @@ def main_path(model):
     return launches, steps, imgs, segs, results["fp32"][0]
 
 
-def run_cli(model):
-    phase("6. inference CLI on phantom volumes, on the card")
+def phantom_pair_dirs(tmp):
+    """fiximg/fixseg (1 phantom volume) and movimg/movseg (2) under ``tmp``:
+    the real-pairs layout of the inference CLIs."""
     rng = np.random.default_rng(3)
-    with tempfile.TemporaryDirectory() as tmp:
-        dirs = {}
-        for name in ("fiximg", "fixseg", "movimg", "movseg"):
-            dirs[name] = os.path.join(tmp, name)
-            os.mkdir(dirs[name])
-        for kind, n in (("fix", 1), ("mov", 2)):
-            for i in range(n):
-                img, seg = phantom_volume(rng)
-                write_analyze(os.path.join(dirs[f"{kind}img"], f"{kind}{i}_mpr"), img)
-                write_analyze(os.path.join(dirs[f"{kind}seg"], f"{kind}{i}_seg"), seg)
-        save_best_weights(tmp, "FlowNet2", model, {"loss": 0.0})
-        reset_counts()
-        results = cli_inference.main([
-            "--mode", "real", "--model", "flownet2", "--batch_size", "1",
-            "--fiximg_dir", dirs["fiximg"], "--fixseg_dir", dirs["fixseg"],
-            "--movimg_dir", dirs["movimg"], "--movseg_dir", dirs["movseg"],
-            "--workdir", tmp, "--logdir", os.path.join(tmp, "log"),
-            "--max_samples", "4",
-        ], device="cuda")
-        torch.cuda.synchronize()
+    dirs = {}
+    for name in ("fiximg", "fixseg", "movimg", "movseg"):
+        dirs[name] = os.path.join(tmp, name)
+        os.mkdir(dirs[name])
+    for kind, n in (("fix", 1), ("mov", 2)):
+        for i in range(n):
+            img, seg = phantom_volume(rng)
+            write_analyze(os.path.join(dirs[f"{kind}img"], f"{kind}{i}_mpr"), img)
+            write_analyze(os.path.join(dirs[f"{kind}seg"], f"{kind}{i}_seg"), seg)
+    return dirs
+
+
+def run_cli(model, dirs, tmp):
+    phase("6. inference CLI on phantom volumes, on the card")
+    save_best_weights(tmp, "FlowNet2", model, {"loss": 0.0})
+    reset_counts()
+    results = cli_inference.main([
+        "--mode", "real", "--model", "flownet2", "--batch_size", "1",
+        "--fiximg_dir", dirs["fiximg"], "--fixseg_dir", dirs["fixseg"],
+        "--movimg_dir", dirs["movimg"], "--movseg_dir", dirs["movseg"],
+        "--workdir", tmp, "--logdir", os.path.join(tmp, "log"),
+        "--max_samples", "4",
+    ], device="cuda")
+    torch.cuda.synchronize()
     got = counts()
     print(f"  CLI launches over 4 batches: {got}")
     require(got == {k: 4 * n for k, n in EVAL_LAUNCHES.items()}, "CLI launch counts")
@@ -1046,6 +1080,154 @@ def run_3d_cli():
             require(f"[{tag} epoch 1/1] loss" in runs[stage], f"--stage {stage} output")
 
 
+def card_against_cpu_registration(label, register, fixed, moving, mask, ncc):
+    """One registration on the card and the same on the CPU's plain path,
+    on the same inputs. Adam with eps 1e-8 steps each pixel by about lr
+    whatever the size of its gradient, and K5 and K6c sum with atomics in an
+    order that changes from run to run, so the two may part where a gradient
+    is within rounding of zero: the flows must agree to 0.1 px anywhere and
+    2e-3 px on average, the warped images to 1e-3 on average, and the local
+    NCC each reaches to 1e-3. Returns the card's (flow, warped)."""
+    flow, warped = register(fixed, moving, mask)
+    cflow, cwarped = register(fixed.cpu(), moving.cpu(),
+                              None if mask is None else mask.cpu())
+    torch.cuda.synchronize()
+    dflow = (flow.cpu() - cflow).abs()
+    dwarp = (warped.cpu() - cwarped).abs()
+    cpu_mask = None if mask is None else mask.cpu()
+    n_card = float(ncc(fixed.cpu(), warped.cpu(), cpu_mask))
+    n_cpu = float(ncc(fixed.cpu(), cwarped, cpu_mask))
+    print(f"  {label} card vs CPU: |Δflow| max {float(dflow.max()):.3g} px, mean "
+          f"{float(dflow.mean()):.3g} (|flow| ≤ {float(cflow.abs().max()):.4g}); "
+          f"|Δwarped| max {float(dwarp.max()):.3g}, mean {float(dwarp.mean()):.3g}; "
+          f"local NCC card {n_card:.6f}, CPU {n_cpu:.6f} (tolerances 0.1 and 2e-3 px, "
+          f"1e-3, 1e-3)")
+    require(float(dflow.max()) <= 0.1 and float(dflow.mean()) <= 2e-3
+            and float(dwarp.mean()) <= 1e-3 and abs(n_card - n_cpu) <= 1e-3,
+            f"{label}: the card's registration and the CPU's disagree")
+    return flow, warped
+
+
+def syn_pair():
+    """A phantom slice [1, 1, 256, 256] and its elastic deformation (control
+    offsets of 2 px every 16 px, made on the CPU), on the card, with the
+    mask fixed > 0."""
+    imgs, _ = phantom_batch(1, SIZE, seed=40)
+    fixed = imgs[..., 0][:, None].contiguous()
+    moving, _ = rand_elastic_2d(fixed, magnitude_range=(2.0, 2.0),
+                                generator=torch.Generator().manual_seed(41))
+    fixed, moving = fixed.to(DEV), moving.to(DEV)
+    return fixed, moving, (fixed > 0).float()
+
+
+def syn_path():
+    phase("8e. 2-D SyN: register_syn at 256², batch 1, (10, 0, 0), masked")
+    fixed, moving, mask = syn_pair()
+    torch.cuda.synchronize()
+    reset_counts()
+    flow, warped = register_syn(fixed, moving, mask, (10, 0, 0))
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  launches in one registration: {launches}")
+    require(launches == SYN_LAUNCHES, f"register_syn should launch {SYN_LAUNCHES}")
+    require(tuple(flow.shape) == (1, 2, SIZE, SIZE) and tuple(warped.shape) == (1, 1, SIZE, SIZE)
+            and bool(torch.isfinite(flow).all()) and bool(torch.isfinite(warped).all())
+            and flow.grad_fn is None, "register_syn: shapes, finiteness or autograd history")
+    before = float(local_ncc(fixed, moving, mask))
+    after = float(local_ncc(fixed, warped, mask))
+    print(f"  local NCC (masked): identity {before:.6f}, registered {after:.6f}; "
+          f"|flow| max {float(flow.abs().max()):.4g} px")
+    require(after > before, "register_syn did not raise the local NCC")
+    card_against_cpu_registration(
+        "register_syn 256²", lambda f, m, k: register_syn(f, m, k, (10, 0, 0)),
+        fixed, moving, mask, local_ncc)
+    return launches, (fixed, moving, mask), flow
+
+
+def identity_dice(loader, n):
+    """Mean Dice of the moving segmentation against the fixed one over the
+    first ``n`` pairs of ``loader`` (batch 1)."""
+    scores = []
+    for batch in loader:
+        segs = batch["seg_c"].cpu().numpy()
+        scores.append(dice_average(segs[0, ..., 0], segs[0, ..., 1]))
+        if len(scores) == n:
+            break
+    return float(np.mean(scores))
+
+
+def run_ants_cli(dirs):
+    phase("8f. comparator CLI (tpureg_torch.cli.inference_ants) on phase 6's "
+          "phantom volumes, --mode real and --mode synthetic")
+    n = 3
+    for mode, args, loader in (
+            ("real", ["--fiximg_dir", dirs["fiximg"], "--fixseg_dir", dirs["fixseg"],
+                      "--movimg_dir", dirs["movimg"], "--movseg_dir", dirs["movseg"]],
+             real_pairs_dataset(dirs["fiximg"], dirs["fixseg"], dirs["movimg"],
+                                dirs["movseg"], 1, device=DEV)[0]),
+            ("synthetic", ["--img_dir", dirs["movimg"], "--seg_dir", dirs["movseg"]],
+             eval_random_dataset(dirs["movimg"], dirs["movseg"], 1, DEV, seed=8)[0])):
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            results = cli_ants.main(["--mode", mode, "--max_samples", str(n), *args],
+                                    device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        ident = identity_dice(loader, n)
+        print(f"  --mode {mode}, {n} pairs: {wall:.2f} s, {n / wall:.3f} pairs/s "
+              f"(registration and the host's metric suite); launches {got}")
+        print("    " + ", ".join(f"{k} {v:.5f}" for k, v in results.items()))
+        print(f"    identity's mean Dice on the same pairs: {ident:.5f}")
+        # once a pair; --mode synthetic also makes each batch's moving image
+        # by the elastic synthesis (one K3 a batch of 1)
+        want = {k: n * c + (n if mode == "synthetic" and k == "warp2d" else 0)
+                for k, c in SYN_LAUNCHES.items()}
+        require(got == want, f"--mode {mode}: the CLI should launch {want}")
+        require(all(np.isfinite(v) for v in results.values()) and len(results) == 8,
+                f"--mode {mode}: metrics missing or not finite")
+        require(results["dice"] > ident, f"--mode {mode}: SyN's Dice is not above identity's")
+
+
+def syn3d_volumes(size, seed):
+    """Two phantom heads resized (trilinear) to ``size`` and min-max scaled:
+    fixed and moving, each [1, 1, D, H, W] on the card."""
+    raw = head_volumes(seed)
+    vols = _minmax_scale_volume(resize_nd(raw[:, None], size, "linear"))
+    return vols[0:1].contiguous(), vols[1:2].contiguous()
+
+
+def syn3d_path():
+    phase("8g. 3-D SyN: register_syn3d at 176 x 256 x 256, batch 1, (30, 20, 10)")
+    fixed, moving = syn3d_volumes(VOLUME_SIZE, 42)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    flow, warped = register_syn3d(fixed, moving)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    print(f"  launches in one registration: {launches}")
+    require(launches == SYN3D_LAUNCHES, f"register_syn3d should launch {SYN3D_LAUNCHES}")
+    require(tuple(flow.shape) == (1, 3, *VOLUME_SIZE) and bool(torch.isfinite(flow).all())
+            and bool(torch.isfinite(warped).all()), "register_syn3d: shape or non-finite")
+    neg = neg_jacobian_fraction(flow[0].permute(1, 2, 3, 0).cpu().numpy())
+    before = float(local_ncc3d(fixed, moving))
+    after = float(local_ncc3d(fixed, warped))
+    print(f"  first call {wall:.3f} s (peak memory: phase 9); |flow| max "
+          f"{float(flow.abs().max()):.4g} voxels; negative-Jacobian fraction {neg:.3g}; "
+          f"local NCC identity {before:.6f}, registered {after:.6f}")
+    require(after > before, "register_syn3d did not raise the local NCC")
+    small = syn3d_volumes((32, 64, 64), 43)
+    card_against_cpu_registration(
+        "register_syn3d 32 x 64 x 64, (10, 0, 0)",
+        lambda f, m, k: register_syn3d(f, m, k, (10, 0, 0)), *small, None, local_ncc3d)
+    return launches, (fixed, moving), flow
+
+
 def cli_summary(text):
     """The epoch, checkpoint and summary lines of a CLI's output."""
     keep = ("EPOCH", "===>", "saving", "loading", "complete", "summary")
@@ -1111,6 +1293,14 @@ def kernel_row(name, source, replaces, counter, path, err, ms, plain, work,
             "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": library, "_counter": counter, "_path": path}
+
+
+def print_rows(rows):
+    for row in rows:
+        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
+        print(f"  {row['name']:24s} kernel {row['ms'] * 1e3:8.2f} us  plain "
+              f"{row['plain_ms'] * 1e3:9.2f} us  bound {row['bound_ms'] * 1e3:6.2f} us "
+              f"({row['bound_by']})  library {lib}")
 
 
 def step_times(label, call, reps=10, warmup=2, per=BATCH, unit="pair"):
@@ -1518,11 +1708,7 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             warp_dimg_work(shape, p, dtype), torch.float32, lib_dimg))
     kernels += dimg_timings()
     kernels += warp3d_timings(errs["warp3d"], vols, vflow, velocity)
-    for row in kernels:
-        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
-        print(f"  {row['name']:24s} kernel {row['ms'] * 1e3:8.2f} us  plain "
-              f"{row['plain_ms'] * 1e3:9.2f} us  bound {row['bound_ms'] * 1e3:6.2f} us "
-              f"({row['bound_by']})  library {lib}")
+    print_rows(kernels)
 
     for name, step in eval_steps.items():
         step_times(f"eval step {name}, batch {BATCH} at 256² with segs",
@@ -1534,6 +1720,163 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
         step_times(f"3-D {name} train step fp32, batch {VOL_BATCH} at 176 x 256 x 256",
                    lambda: step(vols), per=VOL_BATCH, unit="volume")
     return kernels
+
+
+def composition_positions(field):
+    """Positions [B, P] of ``field`` [B, C, ...] (C = 2 or 3) composed with
+    itself: the grid plus the field, (x, y[, z])."""
+    b = field.shape[0]
+    if field.dim() == 4:
+        grid = (torch.arange(field.shape[3], device=DEV, dtype=torch.float32),
+                torch.arange(field.shape[2], device=DEV, dtype=torch.float32)[:, None])
+    else:
+        zz, yy, xx = voxel_grid(*field.shape[2:], DEV)
+        grid = (xx, yy, zz)
+    return [(g + field[:, k]).reshape(b, -1).contiguous() for k, g in enumerate(grid)]
+
+
+def syn_timings(flow, flow3d):
+    """K3, K4 and K5 at the 2-D comparator's last composition, at the 64²
+    level (K4, K5) and in the final exponential at 256² (K3), and K6a, K6b
+    and K6c at the 3-D comparator's last full-resolution composition, each
+    with its plain version and the library call that computes its function
+    (fp32). The fields are the registrations' own: a velocity is taken as
+    the registered flow brought to the level, and the last composition
+    composes exp(v / 2) with itself."""
+    rows = []
+    with torch.no_grad():
+        v64 = resize2d(flow, (64, 64)) * (64 / SIZE)
+        f64 = exp_velocity(v64 / 2, 5).contiguous()
+        f256 = exp_velocity(flow / 2, 5).contiguous()
+    shape = tuple(f64.shape)
+    px, py = composition_positions(f64)
+    p = px.shape[1]
+    grid = torch.stack([px * (2 / (shape[3] - 1)) - 1, py * (2 / (shape[2] - 1)) - 1],
+                       -1).reshape(shape[0], shape[2], shape[3], 2)
+    cot = torch.randn((shape[0], shape[1], p), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(50))
+    out, dpx, dpy = sample2d_taps_cuda(f64, px, py)
+    want, wpx, wpy = sample2d_taps_reference(f64, px, py)
+    torch.cuda.synchronize()
+    taps_err = max(float((dpx - wpx).abs().max()), float((dpy - wpy).abs().max()))
+    require(bool(torch.equal(out, want)) and all(
+        bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all()) for a, b in ((dpx, wpx), (dpy, wpy))),
+        "K4 disagrees with its plain version at SyN's composition")
+    print(f"  K4 at SyN's composition {shape}, |displacement| max "
+          f"{float(f64.abs().max()):.3g} px: sample equal to the plain one, bases "
+          f"max |kernel - plain| = {taps_err:.3g} (tolerance 1e-6 abs + 1e-5 rel)")
+    _, dgrid = torch.ops.aten.grid_sampler_2d_backward(
+        cot.reshape(shape), f64, grid, 0, 0, True, [False, True])
+    dx = (cot * dpx).sum(1).reshape(shape[0], shape[2], shape[3]) * ((shape[3] - 1) / 2)
+    print(f"  grid_sampler_2d_backward d/dgrid agrees with Σ_c g·K4 to "
+          f"{float((dgrid[..., 0] - dx).abs().max()):.3g} (of {float(dx.abs().max()):.3g})")
+    ms = time_ms(lambda: sample2d_taps_cuda(f64, px, py), 200)
+    plain = time_ms(lambda: sample2d_taps_reference(f64, px, py), 10, head_start_ms=100.0)
+    lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        cot.reshape(shape), f64, grid, 0, 0, True, [False, True]), 200)
+    rows.append(kernel_row("warp2d_taps_syn", "warp2d_grad.cu",
+                           "tpureg/ops/warp_pallas.py:197", "warp2d_taps", "syn",
+                           taps_err, ms, plain, warp_taps_work(f64, p), torch.float32, lib))
+    dimg_err = check_dimg(f"SyN's composition {shape}", shape, px, py, torch.float32)
+    dimg_lib, _ = torch.ops.aten.grid_sampler_2d_backward(
+        cot.reshape(shape), f64, grid, 0, 0, True, [True, False])
+    print(f"  grid_sampler_2d_backward d/dinput agrees with K5 to "
+          f"{float((dimg_lib - sample2d_dimg_cuda(cot, px, py, shape)).abs().max()):.3g}")
+    ms = time_ms(lambda: sample2d_dimg_cuda(cot, px, py, shape), 200)
+    plain = time_ms(lambda: sample2d_dimg_reference(cot, px, py, shape), 10,
+                    head_start_ms=100.0)
+    lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        cot.reshape(shape), f64, grid, 0, 0, True, [True, False]), 200)
+    rows.append(kernel_row("warp2d_dimg_syn_level", "warp2d_grad.cu",
+                           "tpureg/ops/warp_pallas.py:230", "warp2d_dimg", "syn",
+                           dimg_err, ms, plain, warp_dimg_work(shape, p, torch.float32),
+                           torch.float32, lib))
+    # K3 in the final exponential at 256²
+    shape = tuple(f256.shape)
+    px, py = composition_positions(f256)
+    p = px.shape[1]
+    grid = torch.stack([px * (2 / (SIZE - 1)) - 1, py * (2 / (SIZE - 1)) - 1],
+                       -1).reshape(shape[0], SIZE, SIZE, 2)
+    got = sample2d_cuda(f256, px, py)
+    exact = bool(torch.equal(got, sample2d_gather(f256, px, py)))
+    lib_err = float((F.grid_sample(f256, grid, mode="bilinear", padding_mode="zeros",
+                                   align_corners=True).reshape(got.shape) - got).abs().max())
+    print(f"  K3 at the final exponential's composition {shape}: equal to the plain "
+          f"gather: {exact}; grid_sample agrees to {lib_err:.3g}")
+    require(exact, "K3 disagrees with its plain version at SyN's final exponential")
+    ms = time_ms(lambda: sample2d_cuda(f256, px, py), 200)
+    plain = time_ms(lambda: sample2d_gather(f256, px, py), 20, head_start_ms=100.0)
+    lib = time_ms(lambda: F.grid_sample(f256, grid, mode="bilinear", padding_mode="zeros",
+                                        align_corners=True), 200)
+    rows.append(kernel_row("warp2d_syn", "warp2d.cu", "tpureg/ops/warp_pallas.py:183",
+                           "warp2d", "syn", 0.0, ms, plain, warp_work(f256, p),
+                           torch.float32, lib))
+
+    # K6a, K6b, K6c at the 3-D comparator's last composition at full size
+    with torch.no_grad():
+        f3 = exp_velocity3d(flow3d / 2, 5).contiguous()
+    shape = tuple(f3.shape)
+    pos = composition_positions(f3)
+    p = pos[0].shape[1]
+    grid = unit_grid(*pos, shape)
+    cot = torch.randn((shape[0], shape[1], p), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(51))
+    got = sample3d_cuda(f3, *pos)
+    exact = bool(torch.equal(got, sample3d_gather(f3, *pos)))
+    dpos = sample3d_dpos_cuda(cot, f3, *pos)
+    ref = sample3d_dpos_reference(cot, f3, *pos)
+    # each basis is a difference of corner values, here displacements of up
+    # to several voxels, so its roundings are of the values' size, not of
+    # the difference's: a few fp32 roundings of max(1, |field|) times
+    # Σ_c |g_c|, beside 1e-5 of the result (phase 4c's volumes are in [0, 1])
+    scale = max(1.0, float(f3.abs().max()))
+    torch.cuda.synchronize()
+    pos_err = max(float((k - r).abs().max()) for k, r in zip(dpos, ref))
+    pos_ok = all(bool(((k - r).abs() <= 1e-6 * scale * cot.abs().sum(1)
+                       + 1e-5 * r.abs()).all()) for k, r in zip(dpos, ref))
+    del got, dpos, ref
+    dvol = sample3d_dvol_cuda(cot, *pos, shape)
+    dref = sample3d_dvol_reference(cot, *pos, shape)
+    torch.cuda.synchronize()
+    dvol_err = float((dvol - dref).abs().max())
+    dvol_ok = bool(((dvol - dref).abs() <= 1e-5 + 1e-5 * dref.abs()).all())
+    del dref
+    print(f"  3-D SyN's last composition {shape}, |displacement| max "
+          f"{float(f3.abs().max()):.3g} voxels: K6a equal to the plain sample: {exact}; "
+          f"K6b max |kernel - plain| = {pos_err:.3g} (tolerance 1e-6 x {scale:.3g} x "
+          f"Σ_c |g_c| + 1e-5 rel); "
+          f"K6c {dvol_err:.3g} (tolerance 1e-5 abs + 1e-5 rel)")
+    require(exact and pos_ok and dvol_ok, "K6 disagrees at the 3-D SyN's composition")
+    ms = time_ms(lambda: sample3d_cuda(f3, *pos), 50)
+    plain = time_ms(lambda: sample3d_gather(f3, *pos), 3, head_start_ms=300.0)
+    lib = time_ms(lambda: F.grid_sample(f3, grid, mode="bilinear", padding_mode="zeros",
+                                        align_corners=True), 50)
+    rows.append(kernel_row("warp3d_syn3d", "warp3d.cu", "tpureg/ops/warp3d_pallas.py:210",
+                           "warp3d", "syn3d", 0.0, ms, plain, warp3d_work(f3, p),
+                           torch.float32, lib))
+    ms = time_ms(lambda: sample3d_dpos_cuda(cot, f3, *pos), 50)
+    plain = time_ms(lambda: sample3d_dpos_reference(cot, f3, *pos), 3, head_start_ms=300.0)
+    lib = dpos_yardstick("3-D SyN's composition", cot, f3, pos, grid, 50)
+    rows.append(kernel_row("warp3d_dpos_syn3d", "warp3d.cu",
+                           "tpureg/ops/warp3d_pallas.py:210", "warp3d_dpos", "syn3d",
+                           pos_err, ms, plain, warp3d_dpos_work(f3, p), torch.float32, lib))
+    dimg_lib, _ = torch.ops.aten.grid_sampler_3d_backward(
+        cot.reshape(shape), f3, grid, 0, 0, True, [True, False])
+    print(f"  grid_sampler_3d_backward d/dinput agrees with K6c to "
+          f"{float((dimg_lib - dvol).abs().max()):.3g}")
+    del dimg_lib, dvol
+    ms = time_ms(lambda: sample3d_dvol_cuda(cot, *pos, shape), 50)
+    plain = time_ms(lambda: sample3d_dvol_reference(cot, *pos, shape), 3,
+                    head_start_ms=300.0)
+    lib = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+        cot.reshape(shape), f3, grid, 0, 0, True, [True, False]), 50)
+    rows.append(kernel_row("warp3d_dvol_syn3d", "warp3d.cu",
+                           "tpureg/ops/warp3d_pallas.py:456", "warp3d_dvol", "syn3d",
+                           dvol_err, ms, plain, warp3d_dvol_work(shape, p, torch.float32),
+                           torch.float32, lib))
+    del f3, pos, grid, cot
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _kernel_group(name):
@@ -1628,7 +1971,9 @@ def main():
           f"seeded random weights")
     eval_launches, eval_steps, imgs, segs, flow = main_path(model)
     mark("eval path")
-    run_cli(model)
+    pairs = tempfile.TemporaryDirectory()
+    pair_dirs = phantom_pair_dirs(pairs.name)
+    run_cli(model, pair_dirs, pairs.name)
     mark("inference CLI")
     train_launches, train_steps, train_imgs = train_path()
     mark("train path")
@@ -1640,17 +1985,38 @@ def main():
     mark("3-D deform path")
     run_3d_cli()
     mark("3-D CLI")
+    syn_launches, syn_args, syn_flow = syn_path()
+    mark("2-D SyN")
+    run_ants_cli(pair_dirs)
+    pairs.cleanup()
+    mark("comparator CLI")
+    syn3d_launches, syn3d_args, syn3d_flow = syn3d_path()
+    mark("3-D SyN")
     vol_steps = {"affine": affine_step, "deform": deform_step}
     kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                       vol_steps, vols, vflow, velocity)
+    syn_rows = syn_timings(syn_flow, syn3d_flow)
+    print_rows(syn_rows)
+    kernels += syn_rows
+    syn_calls = {"register_syn": lambda f, m, k: register_syn(f, m, k, (10, 0, 0))}
+    syn3d_calls = {"register_syn3d": lambda f, m: register_syn3d(f, m)}
+    step_times("register_syn at 256², (10, 0, 0)",
+               lambda: {"loss": syn_calls["register_syn"](*syn_args)[1].sum()},
+               warmup=1, per=1)
+    step_times("register_syn3d at 176 x 256 x 256, (30, 20, 10)",
+               lambda: {"loss": syn3d_calls["register_syn3d"](*syn3d_args)[1].sum()},
+               reps=3, warmup=1, per=1)
     mark("timings")
     phase("10. where the steps' time goes (torch.profiler, one step each)")
     breakdown("eval step", eval_steps, (imgs, segs))
     breakdown("train step", train_steps, (train_imgs,))
     breakdown("3-D train step", vol_steps, (vols,))
+    breakdown("registration", syn_calls, syn_args)
+    breakdown("registration", syn3d_calls, syn3d_args)
     mark("breakdown")
     launches = {"eval": eval_launches, "train": train_launches,
-                "affine": {"fp32": affine_launches}, "deform": {"fp32": deform_launches}}
+                "affine": {"fp32": affine_launches}, "deform": {"fp32": deform_launches},
+                "syn": {"fp32": syn_launches}, "syn3d": {"fp32": syn3d_launches}}
     for row in kernels:
         dtype = "bf16" if row["name"].endswith("_bf16") else "fp32"
         row["launches"] = launches[row.pop("_path")][dtype][row.pop("_counter")]

@@ -33,6 +33,7 @@ from tpureg_torch.ops import (
     warp3d,
 )
 from tpureg_torch.classical import exp_velocity3d
+from tpureg_torch.classical.syn import _compose
 from tpureg_torch.ops.warp import _Sample3dKernel
 
 pytestmark = pytest.mark.gpu
@@ -381,6 +382,53 @@ def test_warp_autograd_runs_k4_and_k5(dev):
     sample2d_gather(img2, px2, py2).sin().sum().backward()
     torch.testing.assert_close(img.grad, img2.grad, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(flow.grad, flow2.grad, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 64, 64), (1, 2, 256, 256)])
+def test_warp_k4_and_k5_at_syn_compositions(dev, shape):
+    """SyN's composition of a 2-channel field with itself: at the
+    optimisation level of (10, 0, 0) on 256² (64²) and at full size."""
+    b, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(27)
+    field = torch.randn(shape, device=dev, generator=g) * 2.0
+    px, py = _smooth_positions(dev, b, h, w, 2.0, seed=28)
+    out, dpx, dpy = sample2d_taps_cuda(field, px, py)
+    want, wpx, wpy = sample2d_taps_reference(field, px, py)
+    grad = torch.randn((b, c, h * w), device=dev, generator=g)
+    dimg = sample2d_dimg_cuda(grad, px, py, shape)
+    dimg_want = sample2d_dimg_reference(grad, px, py, shape)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    # the bases: a few fp32 roundings of differences of values of order 2
+    torch.testing.assert_close(dpx, wpx, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(dpy, wpy, atol=1e-6, rtol=1e-5)
+    # fp32 sums by atomics in an order that changes from run to run
+    torch.testing.assert_close(dimg, dimg_want, atol=1e-5, rtol=1e-5)
+
+
+def test_syn_compose_autograd_runs_k4_and_k5_once(dev):
+    """classical/syn.py's _compose(flow, flow), as scaling and squaring calls
+    it: the sample's positions and the sampled field both come from the one
+    field, so one forward launches K4 and its backward K5; both cotangents
+    reach the field and agree with the plain path's."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    coarse = torch.randn((1, 2, 8, 8), device=dev, generator=g) * 3.0
+    flow = torch.nn.functional.interpolate(coarse, size=(64, 64), mode="bicubic",
+                                           align_corners=True).requires_grad_()
+    weights = torch.randn((1, 2, 64, 64), device=dev, generator=g)
+    counts = lambda: (sample2d_cuda.launches, sample2d_taps_cuda.launches,
+                      sample2d_dimg_cuda.launches)
+    before = counts()
+    out = _compose(flow, flow)
+    (out * weights).sum().backward()
+    assert tuple(n - m for n, m in zip(counts(), before)) == (0, 1, 1)
+    flow_cpu = flow.detach().cpu().requires_grad_()
+    want = _compose(flow_cpu, flow_cpu)
+    (want * weights.cpu()).sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), want.detach(), atol=0, rtol=0)
+    # the image cotangent's atomics and the bases' association: fp32
+    # roundings of sums of order 1-10
+    torch.testing.assert_close(flow.grad.cpu(), flow_cpu.grad, atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
