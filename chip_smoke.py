@@ -5,9 +5,9 @@
 1. the card (nvidia-smi name and power limit), versions and TF32 flags;
 2. build the CUDA kernels from ``tpureg_torch/csrc`` and show ptxas's report;
 3. K1 (correlation) and K2 (its backward) against their plain versions at
-   FlowNetC's shape, fp32 and bf16, at PWC's (md 4, s2 1) levels, at a
-   window wider than K1's widest tile, at s2 not dividing md and at ragged
-   shapes;
+   FlowNetC's shape, fp32 and bf16, at PWC's five (md 4, s2 1) levels at
+   256², batch 8, at a window wider than K1's widest tile, at s2 not
+   dividing md and at ragged shapes;
 4. K3 (bilinear warp), K4 (warp with position-derivative bases) and K5
    (the warp's image cotangent) against their plain versions at 256², B=8,
    on smooth and scattered positions, fp32 and bf16, and with C > 1; K3 also
@@ -20,6 +20,10 @@
    path's shapes (the final warp, 2 x 1 x 176 x 256 x 256; a composition's
    3-channel field, 2 x 3 x 88 x 128 x 128) and at fault C1's (d = 32,
    dz = ±8.5), fp32 and bf16;
+4d. K3, K4 and K5 at PWC's four feature warps at 256², batch 8 ((C, h) =
+   (128, 8), (96, 16), (64, 32), (32, 64)), at the "pwc" positions of a
+   smooth flow, fp32 and bf16, and the warp's validity mask (K3 on a
+   1-channel ones image) at both thresholds, equal to the CPU's;
 5. the eval path: a seeded, full-width FlowNet2 registration head runs the
    eval step at 256², batch 8, with segmentations, in fp32 and bf16; the
    launch counters must show 1 K1 and 7 K3 launches per step; batch 1 is
@@ -58,6 +62,16 @@
    (30, 20, 10), on two phantom heads: 427 K6a, 420 K6b and 360 K6c
    launches; the first call's time, the negative-Jacobian fraction; at
    32 x 64 x 64 and (10, 0, 0) the card held against the CPU's plain path;
+8h. the PWC family: a seeded pwc-reg head at its published widths runs the
+   eval step (with segmentations) and the train step at 256², batch 8, in
+   fp32 and bf16: 5 K1 and 17 K3 launches an eval step; 5 K1, 5 K2, 12 K4,
+   4 K3 (the masks) and 4 K5 a train step; the loss falls over 5 steps; at
+   batch 1 the eval flows and losses and the fp32 gradient are held against
+   the CPU's plain path, and so are the forwards of pwc, pwc-bilinear and
+   pwc-old (its module alone, on a 6-channel pair, in both modes); the
+   training CLI trains pwc-reg on phase 8's volumes, resumes and saves best
+   weights, which the inference CLI loads in ``--mode real`` (phase 6's
+   volumes) and ``--mode synthetic``;
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 and K5, ``grid_sampler_3d_backward``
@@ -66,12 +80,15 @@
    K1's and K2's bounds on the tensor-core pipe they use beside their
    fp32-pipe bounds; K1 also at PWC's 8 x 64 x 32², md 4, s2 1; K5 also at
    SyN's and PWC's shapes; K3, K4, K5 and K6a-c at the comparators' own
-   compositions),
-   the eval and train steps at batch 8 and the 3-D train steps at batch 2,
-   whole 2-D and 3-D registrations, peak memory;
+   compositions; K1 and K2 at PWC's level-2 and level-6 shapes; K4 and K5
+   at PWC's four feature warps, and K4, the two reductions and K5 as one
+   number against ``grid_sample`` and ``grid_sampler_2d_backward``; K3 on
+   PWC's mask),
+   the eval and train steps of FlowNet2 and pwc-reg at batch 8 and the 3-D
+   train steps at batch 2, whole 2-D and 3-D registrations, peak memory;
 10. a torch.profiler breakdown of one eval, one train and one step of each
-    3-D stage, and of one 2-D and one 3-D registration, by kernel group,
-    with the device's idle share.
+    3-D stage, of pwc-reg's eval and train steps, and of one 2-D and one 3-D
+    registration, by kernel group, with the device's idle share.
 
 The line before the last is the kernel table as JSON, the one before it the
 card; the last line is ``{"ok": true, "device": {...}}``. Any failed phase
@@ -107,7 +124,7 @@ from tpureg_torch.classical.syn3d import local_ncc3d
 from tpureg_torch.data import VOLUME_SIZE, eval_random_dataset, real_pairs_dataset
 from tpureg_torch.data.pipeline import _minmax_scale_volume, _process_volume
 from tpureg_torch.metrics import dice_average, neg_jacobian_fraction
-from tpureg_torch.models import AffineNet3D, VoxelMorph3D
+from tpureg_torch.models import AffineNet3D, VoxelMorph3D, build_predictor
 from tpureg_torch.ops import cuda_lib, resize2d, resize_nd
 from tpureg_torch.ops.elastic import rand_elastic_2d
 from tpureg_torch.ops.correlation import (
@@ -131,10 +148,13 @@ from tpureg_torch.ops.warp import (
     sample3d_dvol_reference,
     sample3d_gather,
     voxel_grid,
+    warp2d,
 )
 from tpureg_torch.reg import OpticalFlowReg
 from tpureg_torch.train import (
+    best_weight_path,
     create_train_state,
+    default_loss_kwargs,
     make_affine_train_step,
     make_deform3d_train_step,
     make_eval_step,
@@ -185,6 +205,18 @@ DEFORM_LAUNCHES = launches_of(warp3d=8, warp3d_dpos=8, warp3d_dvol=7)
 # backward) and the moving image's warp, whose positions do (K4); the
 # final exponential and warp at 256² run under no_grad (6 + 1 K3)
 SYN_LAUNCHES = launches_of(warp2d=7, warp2d_taps=70, warp2d_dimg=60)
+# pwc-reg's eval step: K1 at the 5 pyramid levels; K3 for the 4 feature
+# warps (no gradient under inference_mode), their 4 validity masks, the
+# head's 7 image warps (one a flow), the segmentation and the grid
+PWC_EVAL_LAUNCHES = launches_of(correlation=5, warp2d=17)
+# pwc-reg's train step: K1 and K2 at the 5 levels; K4 for the 4 feature
+# warps, the head's 7 image warps and the grid, whose positions need
+# gradients (12: the loss reads the finest 2 flows, but the head warps the
+# moving image at all 7 and the grid at the finest); the 4 masks sample at
+# detached positions (K3); the warped moving features need their cotangent
+# (K5); the moving image and the grid are inputs
+PWC_TRAIN_LAUNCHES = launches_of(correlation=5, correlation_bwd=5, warp2d=4,
+                                 warp2d_taps=12, warp2d_dimg=4)
 # register_syn3d, (30, 20, 10): each of the 60 iterations runs 6
 # compositions (K6a; K6b and K6c backward) and the moving volume's warp
 # (K6a; K6b); the final exponential and warp run K6a only (6 + 1)
@@ -445,13 +477,15 @@ def build():
     print(cuda_lib.ptxas_report())
 
 
-# K1's card shapes: FlowNetC; PWC's levels (md 4, s2 1); a window wider
-# than the widest tile; s2 not dividing md (no parity classes); H not a
-# multiple of a block's rows and C = 40, not a multiple of 16; more
-# channels than shared memory holds (staged in chunks)
+# K1's card shapes: FlowNetC; PWC's five levels at 256² (md 4, s2 1); a
+# window wider than the widest tile; s2 not dividing md (no parity
+# classes); H not a multiple of a block's rows and C = 40, not a multiple
+# of 16; more channels than shared memory holds (staged in chunks)
 K1_CASES = (((BATCH, 256, 32, 32), 20, 2),
             ((BATCH, 64, 32, 32), 4, 1),
             ((BATCH, 196, 4, 4), 4, 1),
+            ((BATCH, 128, 8, 8), 4, 1),
+            ((BATCH, 96, 16, 16), 4, 1),
             ((2, 32, 64, 64), 4, 1),
             ((1, 32, 16, 80), 20, 2),
             ((2, 24, 13, 29), 3, 2),
@@ -494,7 +528,11 @@ def check_correlation_bwd():
     errs = {}
     g = torch.Generator(device=DEV).manual_seed(6)
     cases = (((BATCH, 256, 32, 32), 20, 2),   # FlowNetC at 256²
-             ((BATCH, 64, 32, 32), 4, 1),     # PWC's configuration
+             ((BATCH, 64, 32, 32), 4, 1),     # PWC's level 3 at 256²
+             ((BATCH, 196, 4, 4), 4, 1),      # PWC's levels 6, 5, 4 and 2
+             ((BATCH, 128, 8, 8), 4, 1),
+             ((BATCH, 96, 16, 16), 4, 1),
+             ((BATCH, 32, 64, 64), 4, 1),
              ((1, 40, 9, 37), 20, 2))         # ragged column tile and channels
     for shape, md, s2 in cases:
         k = displacement_count(md, s2)
@@ -542,14 +580,19 @@ def warp_inputs(dtype, seed=1, scale=60.0, shape=(BATCH, 1, SIZE, SIZE)):
     return img, px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
 
 
-def smooth_positions(b, h, w, amp, seed):
-    """Positions [B, P] at the pixel grid plus a smooth displacement of
-    about ``amp`` px: bicubic upsampling of N(0, amp²) noise on a grid 16
-    times coarser (SyN's compositions and PWC's feature warps)."""
+def smooth_flow(b, h, w, amp, seed):
+    """A smooth flow [B, 2, h, w] of about ``amp`` px: bicubic upsampling of
+    N(0, amp²) noise on a grid 16 times coarser."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     coarse = torch.randn((b, 2, max(h // 16, 2), max(w // 16, 2)), device=DEV,
                          generator=g) * amp
-    flow = F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=True)
+    return F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=True)
+
+
+def smooth_positions(b, h, w, amp, seed):
+    """Positions [B, P] at the pixel grid plus ``smooth_flow`` (SyN's
+    compositions and K5's shapes)."""
+    flow = smooth_flow(b, h, w, amp, seed)
     px = torch.arange(w, device=DEV, dtype=torch.float32) + flow[:, 0]
     py = torch.arange(h, device=DEV, dtype=torch.float32)[:, None] + flow[:, 1]
     return px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
@@ -732,6 +775,73 @@ def check_warp3d():
                 errs["warp3d_dvol"][label] = derr
             del vol, px, py, pz, grad, dvol, dref
             torch.cuda.empty_cache()
+    return errs
+
+
+# PWC's four feature warps at 256², batch 8: (level, C, h) for levels 5-2
+PWC_WARPS = ((5, 128, 8), (4, 96, 16), (3, 64, 32), (2, 32, 64))
+
+
+def pwc_positions(flow):
+    """The "pwc" convention's positions [B, P] of ``flow``:
+    (flow + xy) · size / (size - 1) - 0.5, as ``warp2d`` forms them."""
+    b, _, h, w = flow.shape
+    px = (torch.arange(w, device=DEV, dtype=torch.float32) + flow[:, 0]) * (w / (w - 1)) - 0.5
+    py = ((torch.arange(h, device=DEV, dtype=torch.float32)[:, None] + flow[:, 1])
+          * (h / (h - 1)) - 0.5)
+    return px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
+
+
+def check_pwc_warps():
+    phase("4d. K3, K4 and K5 at PWC's feature warps, and K3 on their validity masks")
+    errs = {}
+    for lvl, c, h in PWC_WARPS:
+        shape = (BATCH, c, h, h)
+        flow = smooth_flow(BATCH, h, h, 2.0, seed=40 + lvl)
+        px, py = pwc_positions(flow)
+        for dtype in (torch.float32, torch.bfloat16):
+            img = torch.rand(shape, device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(lvl)
+                             ).to(dtype)
+            k3 = sample2d_cuda(img, px, py)
+            out, dpx, dpy = sample2d_taps_cuda(img, px, py)
+            want, wpx, wpy = sample2d_taps_reference(img, px, py)
+            torch.cuda.synchronize()
+            # as phase 4b: the sample to the last bit, the bases to a few
+            # fp32 roundings
+            exact = bool(torch.equal(k3, want)) and bool(torch.equal(out, want))
+            base_err = max(float((dpx - wpx).abs().max()), float((dpy - wpy).abs().max()))
+            bases_ok = all(bool(((x - y).abs() <= 1e-6 + 1e-5 * y.abs()).all())
+                           for x, y in ((dpx, wpx), (dpy, wpy)))
+            print(f"  K3, K4 {shape} level {lvl} {str(dtype)[6:]}: samples equal to the "
+                  f"plain one: {exact}; K4's bases max |kernel - plain| = "
+                  f"{base_err:.3g} (tolerance 1e-6 abs + 1e-5 rel)")
+            require(exact and bases_ok, f"K3 or K4 disagrees at PWC level {lvl} ({dtype})")
+            derr = check_dimg(f"{shape} PWC level {lvl}", shape, px, py, dtype)
+            if dtype == torch.float32:
+                errs[lvl] = {"warp2d_taps": base_err, "warp2d_dimg": derr}
+            # the warp and its mask on the card (K3 twice: the features,
+            # then a 1-channel ones image in the features' dtype) against
+            # the CPU's plain path, at both thresholds
+            for threshold in (0.9999, 0.999):
+                before = sample2d_cuda.launches
+                got, mask = warp2d(img, flow, "pwc", return_mask=True,
+                                   mask_threshold=threshold)
+                ran = sample2d_cuda.launches - before
+                cpu, cmask = warp2d(img.cpu(), flow.cpu(), "pwc", return_mask=True,
+                                    mask_threshold=threshold)
+                # the mask equal; the output K3's sample of positions that
+                # the card and the CPU may round apart by an ulp
+                diff = (got.cpu().float() - cpu.float()).abs()
+                same = bool(torch.equal(mask.cpu(), cmask)) and bool(
+                    (diff <= 1e-6 + (2.0**-7 if dtype == torch.bfloat16 else 0.0)
+                     * cpu.float().abs()).all())
+                print(f"    mask at {threshold} {str(dtype)[6:]}: {float(mask.float().mean()):.4f} "
+                      f"valid, K3 launches {ran}; mask equal to the CPU's and output "
+                      f"within 1e-6 (+ one bf16 step): {same} (max {float(diff.max()):.3g})")
+                require(same and ran == 2 and mask.shape == (BATCH, 1, h, h)
+                        and mask.dtype == dtype,
+                        f"the pwc warp or its mask disagrees at level {lvl} ({dtype})")
     return errs
 
 
@@ -1234,54 +1344,237 @@ def cli_summary(text):
     return [line for line in text.splitlines() if any(k in line for k in keep)]
 
 
-def run_train_cli():
-    phase("8. training CLI on 10 phantom volumes, resume, inference --mode synthetic")
+def training_volume_dirs(tmp):
+    """img/ and seg/ under ``tmp`` holding 10 phantom volumes: the training
+    CLI's corpus (8 training volumes of 80 slices)."""
     rng = np.random.default_rng(9)
-    with tempfile.TemporaryDirectory() as tmp:
-        img_dir, seg_dir = os.path.join(tmp, "img"), os.path.join(tmp, "seg")
-        os.mkdir(img_dir)
-        os.mkdir(seg_dir)
-        for i in range(10):
-            img, seg = phantom_volume(rng)
-            write_analyze(os.path.join(img_dir, f"vol{i:02d}_mpr"), img)
-            write_analyze(os.path.join(seg_dir, f"vol{i:02d}_seg"), seg)
-        common = ["--img_dir", img_dir, "--seg_dir", seg_dir, "--batch_size",
-                  str(BATCH), "--workdir", tmp, "--logdir", os.path.join(tmp, "log")]
-        runs = {}
-        for label, extra in (("train", ["--epochs", "1", "--cp", "0"]),
-                             ("resume", ["--epochs", "2", "--cp", "1"])):
-            out = io.StringIO()
-            reset_counts()
-            t0 = time.time()
-            with contextlib.redirect_stdout(out):
-                state = cli_train.main(common + extra, device="cuda")
-            torch.cuda.synchronize()
-            runs[label] = out.getvalue()
-            print(f"  {label} ({' '.join(extra)}): {time.time() - t0:.1f} s, "
-                  f"{state.step} steps in all, launches {counts()}")
-            for line in cli_summary(runs[label]):
-                print(f"    {line}")
-        require("EPOCH 1/1" in runs["train"] and "saving new best weights" in runs["train"],
-                "the first training run did not train or save")
-        require("loading checkpoint state" in runs["resume"]
-                and "EPOCH 1/2" not in runs["resume"] and "EPOCH 2/2" in runs["resume"],
-                "the resume did not skip the finished epoch")
-        require(state.step == 2 * 80, "8 training volumes of 80 slices make 80 steps an epoch")
-        reset_counts()
+    dirs = {name: os.path.join(tmp, name) for name in ("img", "seg")}
+    for d in dirs.values():
+        os.mkdir(d)
+    for i in range(10):
+        img, seg = phantom_volume(rng)
+        write_analyze(os.path.join(dirs["img"], f"vol{i:02d}_mpr"), img)
+        write_analyze(os.path.join(dirs["seg"], f"vol{i:02d}_seg"), seg)
+    return dirs
+
+
+def train_cli_and_resume(model, dirs, workdir):
+    """The training CLI on ``dirs``' volumes for one epoch, then ``--cp 1``
+    to two epochs, which must skip the first; returns the final state."""
+    common = ["--model", model, "--img_dir", dirs["img"], "--seg_dir", dirs["seg"],
+              "--batch_size", str(BATCH), "--workdir", workdir, "--logdir",
+              os.path.join(workdir, "log")]
+    runs = {}
+    for label, extra in (("train", ["--epochs", "1", "--cp", "0"]),
+                         ("resume", ["--epochs", "2", "--cp", "1"])):
         out = io.StringIO()
+        reset_counts()
+        t0 = time.time()
         with contextlib.redirect_stdout(out):
-            results = cli_inference.main([
-                "--mode", "synthetic", "--model", "flownet2", "--batch_size", "4",
-                "--img_dir", img_dir, "--seg_dir", seg_dir, "--workdir", tmp,
-                "--logdir", os.path.join(tmp, "log"), "--max_samples", "8",
-            ], device="cuda")
+            state = cli_train.main(common + extra, device="cuda")
         torch.cuda.synchronize()
-    print(f"  inference --mode synthetic on the best weights, 8 samples: "
-          f"launches {counts()}")
+        runs[label] = out.getvalue()
+        print(f"  {model} {label} ({' '.join(extra)}): {time.time() - t0:.1f} s, "
+              f"{state.step} steps in all, launches {counts()}")
+        for line in cli_summary(runs[label]):
+            print(f"    {line}")
+    require("EPOCH 1/1" in runs["train"] and "saving new best weights" in runs["train"],
+            "the first training run did not train or save")
+    require("loading checkpoint state" in runs["resume"]
+            and "EPOCH 1/2" not in runs["resume"] and "EPOCH 2/2" in runs["resume"],
+            "the resume did not skip the finished epoch")
+    require(state.step == 2 * 80, "8 training volumes of 80 slices make 80 steps an epoch")
+    return state
+
+
+def synthetic_eval_cli(model, dirs, workdir):
+    """The inference CLI in ``--mode synthetic`` on the best weights under
+    ``workdir``: 8 samples in batches of 4; returns the launches."""
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = cli_inference.main([
+            "--mode", "synthetic", "--model", model, "--batch_size", "4",
+            "--img_dir", dirs["img"], "--seg_dir", dirs["seg"], "--workdir", workdir,
+            "--logdir", os.path.join(workdir, "log"), "--max_samples", "8",
+        ], device="cuda")
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"  {model} inference --mode synthetic on the best weights, 8 samples: "
+          f"launches {got}")
     for line in cli_summary(out.getvalue()):
         print(f"    {line}")
     for k, v in results.items():
         require(np.isfinite(v), f"CLI metric {k} is not finite")
+    return got
+
+
+def run_train_cli(dirs):
+    phase("8. training CLI on 10 phantom volumes, resume, inference --mode synthetic")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cli_and_resume("flownet2", dirs, tmp)
+        synthetic_eval_cli("flownet2", dirs, tmp)
+
+
+def check_flows(label, got, want):
+    """Card against CPU: each flow within 1e-3 of its scale (at least 1 px)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(w.abs().max())
+        err = float((g.float().cpu() - w).abs().max())
+        print(f"  {label} flow {i} {tuple(w.shape)}: max |Δ| = {err:.3g} at |flow| ≤ "
+              f"{scale:.4g} (tolerance 1e-3 of the scale)")
+        require(err <= 1e-3 * max(scale, 1.0), f"{label}: card and CPU flows disagree")
+
+
+def conv_flops(model, x):
+    """FLOP (two a multiply-add) of the convolutions, transposed ones
+    included, in one forward of ``model`` on ``x``, from the layers'
+    shapes."""
+    total = []
+
+    def count(m, inputs, out):
+        k = m.weight[0, 0].numel()
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            total.append(2 * inputs[0].numel() * m.weight.shape[1] * k)
+        else:
+            total.append(2 * out.numel() * m.weight.shape[1] * k)
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return sum(total)
+
+
+def pwc_path(pair_dirs, train_dirs):
+    phase("8h. PWC family: pwc-reg eval and train steps at 256², batch 8, fp32 "
+          "and bf16; card against CPU; both 2-D CLIs")
+    loss_kwargs = default_loss_kwargs("pwc-reg")
+    n = {name: sum(p.numel() for p in build_predictor(name).parameters())
+         for name in ("pwc-reg", "pwc", "pwc-old")}
+    print(f"  parameters: pwc-reg {n['pwc-reg']}, pwc and pwc-bilinear {n['pwc']}, "
+          f"pwc-old {n['pwc-old']}; seeded random weights; the loss takes the "
+          f"finest {loss_kwargs['num_scales']} flows")
+    model = OpticalFlowReg("pwc-reg", generator=torch.Generator().manual_seed(20))
+    model.to(DEV)
+    imgs, segs = phantom_batch(BATCH, SIZE, seed=21)
+    imgs, segs = imgs.to(DEV), segs.to(DEV)
+    sizes = [SIZE >> i for i in range(7)]
+    eval_launches, eval_steps = {}, {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        step = make_eval_step(model, loss_kwargs, dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        (flows, warped, wsegs, grid), metrics = step(imgs, segs)
+        torch.cuda.synchronize()
+        eval_launches[name] = counts()
+        print(f"  eval {name}: launches {eval_launches[name]}; loss "
+              f"{float(metrics['loss']):.6g}; |flow0| max "
+              f"{float(flows[0].float().abs().max()):.4g} px")
+        require(eval_launches[name] == PWC_EVAL_LAUNCHES,
+                f"pwc-reg's {name} eval step should launch {PWC_EVAL_LAUNCHES}")
+        require([tuple(f.shape) for f in flows] == [(BATCH, n, n, 2) for n in sizes]
+                and [tuple(w.shape) for w in warped] == [(BATCH, n, n, 1) for n in sizes]
+                and wsegs.shape == grid.shape == (BATCH, SIZE, SIZE, 1),
+                "pwc-reg: output shapes")
+        for t in (*flows, *warped, wsegs, grid, *metrics.values()):
+            require(bool(torch.isfinite(t.float()).all()), f"pwc-reg {name}: non-finite output")
+        require(set(torch.unique(wsegs).tolist()) <= {0.0, 1.0, 2.0, 3.0},
+                "warped labels outside 0..3")
+        eval_steps[name] = step
+
+    train_launches, train_steps = {}, {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        tmodel = OpticalFlowReg("pwc-reg", generator=torch.Generator().manual_seed(22))
+        state = create_train_state(tmodel.to(DEV))
+        step = make_train_step(state, loss_kwargs, dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        metrics = step(imgs)
+        torch.cuda.synchronize()
+        train_launches[name] = counts()
+        print(f"  train {name}: launches in one step {train_launches[name]}")
+        require(train_launches[name] == PWC_TRAIN_LAUNCHES,
+                f"pwc-reg's {name} train step should launch {PWC_TRAIN_LAUNCHES}")
+        loss_falls(f"pwc-reg train {name}", step, imgs, float(metrics["loss"]))
+        require(state.step == 5 and all(bool(torch.isfinite(p).all())
+                                         for p in tmodel.parameters()),
+                f"pwc-reg {name}: step count or non-finite weights")
+        train_steps[name] = step
+
+    # batch 1 against the same weights on the CPU, through the plain versions
+    cpu_model = copy.deepcopy(model).cpu()
+    flops = conv_flops(cpu_model.eval(), imgs[:1].cpu())
+    print(f"  pwc-reg's convolutions: {flops / 1e9:.3f} GFLOP a pair forward at 256², "
+          f"{BATCH * flops / 1e9:.3f} at batch {BATCH}")
+    (cflows, _, _, _), cmetrics = make_eval_step(cpu_model, loss_kwargs)(
+        imgs[:1].cpu(), segs[:1].cpu())
+    (gflows, _, _, _), gmetrics = eval_steps["fp32"](imgs[:1], segs[:1])
+    check_flows("pwc-reg eval, batch 1, card vs CPU (fp32, no TF32),", gflows, cflows)
+    for k in cmetrics:
+        r = abs(float(gmetrics[k]) / float(cmetrics[k]) - 1)
+        print(f"    {k}: card {float(gmetrics[k]):.7g}, CPU {float(cmetrics[k]):.7g}, "
+              f"{r:.3g} relative (tolerance 1e-4)")
+        require(r <= 1e-4, f"pwc-reg: card and CPU {k} disagree")
+    card_against_cpu("pwc-reg", OpticalFlowReg(
+        "pwc-reg", generator=torch.Generator().manual_seed(23)),
+        lambda st: make_train_step(st, loss_kwargs), imgs[:1].cpu())
+    for name in ("pwc", "pwc-bilinear"):
+        net = OpticalFlowReg(name, generator=torch.Generator().manual_seed(24))
+        want = make_eval_step(net, loss_kwargs)(imgs[:1].cpu(), segs[:1].cpu())[0][0]
+        got = make_eval_step(copy.deepcopy(net).to(DEV), loss_kwargs)(
+            imgs[:1], segs[:1])[0][0]
+        check_flows(f"{name} eval, batch 1, card vs CPU,", got, want)
+    # pwc-old, the module alone on a 6-channel pair: train mode gives 5
+    # flows, eval mode the bare flow2
+    old = build_predictor("pwc-old", generator=torch.Generator().manual_seed(25))
+    pair = imgs[:1].permute(0, 3, 1, 2).cpu()
+    noise = torch.rand((1, 6, SIZE, SIZE), generator=torch.Generator().manual_seed(26))
+    x = torch.cat([pair[:, :1]] * 3 + [pair[:, 1:]] * 3, 1) + 0.05 * noise
+    card_old = copy.deepcopy(old).to(DEV)
+    for train in (True, False):
+        with torch.no_grad():
+            want = old.train(train)(x)
+            got = card_old.train(train)(x.to(DEV))
+        if not train:
+            require(isinstance(got, torch.Tensor), "pwc-old eval returns a bare flow2")
+            got, want = (got,), (want,)
+        require(len(got) == (5 if train else 1), "pwc-old: number of flows")
+        check_flows(f"pwc-old {'train' if train else 'eval'} mode, card vs CPU,", got, want)
+
+    # both 2-D CLIs with --model pwc-reg
+    with tempfile.TemporaryDirectory() as work:
+        train_cli_and_resume("pwc-reg", train_dirs, work)
+        require(os.path.isfile(best_weight_path(work, "PWCDCNet")),
+                "the training CLI did not save pwc-reg's best weights under PWCDCNet")
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            results = cli_inference.main([
+                "--mode", "real", "--model", "pwc-reg", "--batch_size", "1",
+                "--fiximg_dir", pair_dirs["fiximg"], "--fixseg_dir", pair_dirs["fixseg"],
+                "--movimg_dir", pair_dirs["movimg"], "--movseg_dir", pair_dirs["movseg"],
+                "--workdir", work, "--logdir", os.path.join(work, "log_eval"),
+                "--max_samples", "4"], device="cuda")
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"  pwc-reg inference --mode real on the best weights, 4 pairs: "
+              f"launches {got}")
+        for line in cli_summary(out.getvalue()):
+            print(f"    {line}")
+        require("loaded best weights ({" in out.getvalue()
+                and got == {k: 4 * n for k, n in PWC_EVAL_LAUNCHES.items()},
+                "pwc-reg inference --mode real: weights or launch counts")
+        require(all(np.isfinite(v) for v in results.values()),
+                "pwc-reg inference --mode real: a metric is not finite")
+        got = synthetic_eval_cli("pwc-reg", train_dirs, work)
+        require(got["correlation"] == 2 * 5 and got["correlation_bwd"] == 0
+                and got["warp2d_taps"] == 0 and got["warp2d_dimg"] == 0,
+                "pwc-reg inference --mode synthetic: launch counts")
+    return ({"eval": eval_launches, "train": train_launches},
+            {"eval": eval_steps, "train": train_steps}, imgs, segs)
 
 
 def kernel_row(name, source, replaces, counter, path, err, ms, plain, work,
@@ -1575,7 +1868,8 @@ def dimg_timings():
                             10, head_start_ms=100.0)
             rows.append(kernel_row(
                 f"warp2d_dimg_{name}{sfx}", "warp2d_grad.cu",
-                "tpureg/ops/warp_pallas.py:230", "warp2d_dimg", "train", err, ms, plain,
+                "tpureg/ops/warp_pallas.py:230", "warp2d_dimg",
+                "pwc_train" if name == "pwc" else "train", err, ms, plain,
                 warp_dimg_work(shape, p, dtype), torch.float32, lib))
     return rows
 
@@ -1601,8 +1895,8 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             correlation_work(a.shape, 20, 2, dtype), dtype, None))
         tensor_core_bound(f"correlation{sfx}", kernels[-1], ms,
                           *correlation_work(a.shape, 20, 2, dtype), dtype)
-        # K1 at PWC's configuration (81 displacements, 5 launches a forward
-        # of the PWC family, which is not ported yet)
+        # K1 at PWC's level 3 at 256² (81 displacements; 5 launches a
+        # forward of the PWC family, one a level)
         pshape = (BATCH, 64, 32, 32)
         pg = torch.Generator(device=DEV).manual_seed(25)
         pa = torch.randn(pshape, device=DEV, generator=pg).to(dtype)
@@ -1615,7 +1909,7 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                          head_start_ms=300.0)
         kernels.append(kernel_row(
             "correlation_pwc" + sfx, "correlation.cu",
-            f"tpureg/ops/correlation_pallas.py:{line}", "correlation", "eval", perr,
+            f"tpureg/ops/correlation_pallas.py:{line}", "correlation", "pwc_eval", perr,
             pms, pplain, correlation_work(pshape, 4, 1, dtype), dtype, None))
         tensor_core_bound(f"correlation_pwc{sfx} {pshape} md 4 s2 1", kernels[-1], pms,
                           *correlation_work(pshape, 4, 1, dtype), dtype)
@@ -1720,6 +2014,132 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
         step_times(f"3-D {name} train step fp32, batch {VOL_BATCH} at 176 x 256 x 256",
                    lambda: step(vols), per=VOL_BATCH, unit="volume")
     return kernels
+
+
+def pwc_timings(errs):
+    """PWC's kernels at its own shapes: K1 and K2 at levels 2 and 6, fp32
+    and bf16; K4 and K5 at the four feature warps (fp32), each beside
+    ``grid_sampler_2d_backward``'s cotangent, then K4 with the backward's
+    two reductions and K5 as one number against ``grid_sample`` and
+    ``grid_sampler_2d_backward`` (both cotangents), the library's version of
+    the same forward and backward; K3 on the level-2 validity mask."""
+    rows = []
+    for lvl, shape in ((2, (BATCH, 32, 64, 64)), (6, (BATCH, 196, 4, 4))):
+        g = torch.Generator(device=DEV).manual_seed(50 + lvl)
+        f1 = torch.randn(shape, device=DEV, generator=g)
+        f2 = torch.randn(shape, device=DEV, generator=g)
+        cot = torch.randn((shape[0], 81, *shape[2:]), device=DEV, generator=g)
+        for dtype, sfx, line in ((torch.float32, "", 54), (torch.bfloat16, "_bf16", 130)):
+            a, b, gr = f1.to(dtype), f2.to(dtype), cot.to(dtype)
+            err = float((correlation_cuda(a, b, 4, 1).float()
+                         - correlation_reference(a, b, 4, 1).float()).abs().max())
+            ms = time_ms(lambda: correlation_cuda(a, b, 4, 1), 200)
+            plain = time_ms(lambda: correlation_reference(a, b, 4, 1), 5,
+                            head_start_ms=100.0)
+            work = correlation_work(shape, 4, 1, dtype)
+            rows.append(kernel_row(
+                f"correlation_pwc_l{lvl}{sfx}", "correlation.cu",
+                f"tpureg/ops/correlation_pallas.py:{line}", "correlation", "pwc_eval",
+                err, ms, plain, work, dtype, None))
+            tensor_core_bound(f"correlation_pwc_l{lvl}{sfx} {shape}", rows[-1], ms,
+                              *work, dtype)
+            got = correlation_bwd_cuda(a, b, gr, 4, 1)
+            want = correlation_bwd_reference(a, b, gr, 4, 1)
+            err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+            ms = time_ms(lambda: correlation_bwd_cuda(a, b, gr, 4, 1), 200)
+            plain = time_ms(lambda: correlation_bwd_reference(a, b, gr, 4, 1), 3,
+                            head_start_ms=100.0)
+            work = correlation_bwd_work(shape, 4, 1, dtype, dtype)
+            rows.append(kernel_row(
+                f"correlation_bwd_pwc_l{lvl}{sfx}", "correlation_bwd.cu",
+                "tpureg/ops/correlation_pallas.py:335", "correlation_bwd", "pwc_train",
+                err, ms, plain, work, dtype, None))
+            tensor_core_bound(f"correlation_bwd_pwc_l{lvl}{sfx} {shape}", rows[-1], ms,
+                              *work, dtype)
+
+    backward = torch.ops.aten.grid_sampler_2d_backward
+    for lvl, c, h in PWC_WARPS:
+        shape = (BATCH, c, h, h)
+        flow = smooth_flow(BATCH, h, h, 2.0, seed=40 + lvl)  # phase 4d's flow
+        px, py = pwc_positions(flow)
+        p = px.shape[1]
+        g = torch.Generator(device=DEV).manual_seed(60 + lvl)
+        img = torch.rand(shape, device=DEV, generator=g)
+        cot = torch.randn((BATCH, c, p), device=DEV, generator=g)
+        cot_img = cot.reshape(shape)
+        # grid_sample's grid for the same positions, align_corners=False:
+        # x = ((gx + 1) W - 1) / 2, so gx = (2 x + 1) / W - 1
+        grid = torch.stack([(2 * px + 1) / h - 1, (2 * py + 1) / h - 1],
+                           -1).reshape(BATCH, h, h, 2)
+        dimg_lib, dgrid_lib = backward(cot_img, img, grid, 0, 0, False, [True, True])
+        _, dpx, _ = sample2d_taps_cuda(img, px, py)
+        dx = (cot * dpx).sum(1).reshape(BATCH, h, h) * (h / 2)
+        print(f"  PWC level {lvl} {shape}: grid_sampler_2d_backward agrees with "
+              f"Σ_c g·K4 to {float((dgrid_lib[..., 0] - dx).abs().max()):.3g} (of "
+              f"{float(dx.abs().max()):.3g}) and with K5 to "
+              f"{float((dimg_lib - sample2d_dimg_cuda(cot, px, py, shape)).abs().max()):.3g}")
+        ms = time_ms(lambda: sample2d_taps_cuda(img, px, py), 200)
+        plain = time_ms(lambda: sample2d_taps_reference(img, px, py), 3,
+                        head_start_ms=100.0)
+        lib = time_ms(lambda: backward(cot_img, img, grid, 0, 0, False, [False, True]), 200)
+        rows.append(kernel_row(
+            f"warp2d_taps_pwc_l{lvl}", "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:197",
+            "warp2d_taps", "pwc_train", errs[lvl]["warp2d_taps"], ms, plain,
+            warp_taps_work(img, p), torch.float32, lib))
+        ms = time_ms(lambda: sample2d_dimg_cuda(cot, px, py, shape), 200)
+        plain = time_ms(lambda: sample2d_dimg_reference(cot, px, py, shape), 5,
+                        head_start_ms=100.0)
+        lib = time_ms(lambda: backward(cot_img, img, grid, 0, 0, False, [True, False]), 200)
+        rows.append(kernel_row(
+            f"warp2d_dimg_pwc_l{lvl}", "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:230",
+            "warp2d_dimg", "pwc_train", errs[lvl]["warp2d_dimg"], ms, plain,
+            warp_dimg_work(shape, p, torch.float32), torch.float32, lib))
+
+        def ours():
+            # the train step's feature warp: K4 forward, then its backward
+            _, bx, by = sample2d_taps_cuda(img, px, py)
+            (cot * bx).sum(1)
+            (cot * by).sum(1)
+            return sample2d_dimg_cuda(cot, px, py, shape)
+
+        def library():
+            F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=False)
+            return backward(cot_img, img, grid, 0, 0, False, [True, True])
+
+        # 7 launches a call: a longer head start and fewer calls, so that
+        # the host queues them all before the card reaches the start
+        both = lambda fn: time_ms(fn, 50, head_start_ms=100.0)
+        t_ours, t_lib = both(ours), both(library)
+        t_ours2, t_lib2 = both(ours), both(library)
+        print(f"  PWC level {lvl} {shape}, sample and both cotangents: K4 + 2 "
+              f"reductions + K5 {t_ours * 1e3:.2f} / {t_ours2 * 1e3:.2f} us; grid_sample "
+              f"+ grid_sampler_2d_backward {t_lib * 1e3:.2f} / {t_lib2 * 1e3:.2f} us "
+              f"(two turns); the {'kernels' if t_ours + t_ours2 < t_lib + t_lib2 else 'library'} "
+              f"faster")
+
+    flow = smooth_flow(BATCH, 64, 64, 2.0, seed=70)
+    px, py = pwc_positions(flow)
+    grid = torch.stack([(2 * px + 1) / 64 - 1, (2 * py + 1) / 64 - 1],
+                       -1).reshape(BATCH, 64, 64, 2)
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        ones = torch.ones((BATCH, 1, 64, 64), dtype=dtype, device=DEV)
+        got = sample2d_cuda(ones, px, py)
+        want = sample2d_gather(ones.float(), px, py)
+        err = float((got - want).abs().max())
+        require(bool(torch.equal(got, want)), "K3 on the mask disagrees")
+        ms = time_ms(lambda: sample2d_cuda(ones, px, py), 200)
+        plain = time_ms(lambda: sample2d_gather(ones, px, py), 20, head_start_ms=100.0)
+        lib = None
+        if dtype == torch.float32:
+            lib = time_ms(lambda: F.grid_sample(ones, grid, mode="bilinear",
+                                                padding_mode="zeros",
+                                                align_corners=False), 200)
+        rows.append(kernel_row(
+            f"warp2d_mask_pwc{sfx}", "warp2d.cu", "tpureg/ops/warp_pallas.py:183",
+            "warp2d", "pwc_train", err, ms, plain, warp_work(ones, px.shape[1]),
+            torch.float32, lib))
+    return rows
 
 
 def composition_positions(field):
@@ -1961,7 +2381,8 @@ def main():
     build()
     mark("build")
     errs = {"corr": check_correlation(), "corr_bwd": check_correlation_bwd(),
-            "warp": check_warp(), **check_warp_grads(), "warp3d": check_warp3d()}
+            "warp": check_warp(), **check_warp_grads(), "warp3d": check_warp3d(),
+            "pwc": check_pwc_warps()}
     mark("kernel checks")
 
     model = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(0))
@@ -1977,7 +2398,9 @@ def main():
     mark("inference CLI")
     train_launches, train_steps, train_imgs = train_path()
     mark("train path")
-    run_train_cli()
+    train_vols = tempfile.TemporaryDirectory()
+    train_dirs = training_volume_dirs(train_vols.name)
+    run_train_cli(train_dirs)
     mark("training CLI")
     affine_launches, affine_step, vols = affine_path()
     mark("3-D affine path")
@@ -1988,16 +2411,28 @@ def main():
     syn_launches, syn_args, syn_flow = syn_path()
     mark("2-D SyN")
     run_ants_cli(pair_dirs)
-    pairs.cleanup()
     mark("comparator CLI")
     syn3d_launches, syn3d_args, syn3d_flow = syn3d_path()
     mark("3-D SyN")
+    pwc_launches, pwc_steps, pwc_imgs, pwc_segs = pwc_path(pair_dirs, train_dirs)
+    pairs.cleanup()
+    train_vols.cleanup()
+    mark("PWC family")
     vol_steps = {"affine": affine_step, "deform": deform_step}
     kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                       vol_steps, vols, vflow, velocity)
     syn_rows = syn_timings(syn_flow, syn3d_flow)
     print_rows(syn_rows)
     kernels += syn_rows
+    pwc_rows = pwc_timings(errs["pwc"])
+    print_rows(pwc_rows)
+    kernels += pwc_rows
+    for name, step in pwc_steps["eval"].items():
+        step_times(f"pwc-reg eval step {name}, batch {BATCH} at 256² with segs",
+                   lambda: step(pwc_imgs, pwc_segs)[1])
+    for name, step in pwc_steps["train"].items():
+        step_times(f"pwc-reg train step {name}, batch {BATCH} at 256²",
+                   lambda: step(pwc_imgs))
     syn_calls = {"register_syn": lambda f, m, k: register_syn(f, m, k, (10, 0, 0))}
     syn3d_calls = {"register_syn3d": lambda f, m: register_syn3d(f, m)}
     step_times("register_syn at 256², (10, 0, 0)",
@@ -2011,12 +2446,15 @@ def main():
     breakdown("eval step", eval_steps, (imgs, segs))
     breakdown("train step", train_steps, (train_imgs,))
     breakdown("3-D train step", vol_steps, (vols,))
+    breakdown("pwc-reg eval step", pwc_steps["eval"], (pwc_imgs, pwc_segs))
+    breakdown("pwc-reg train step", pwc_steps["train"], (pwc_imgs,))
     breakdown("registration", syn_calls, syn_args)
     breakdown("registration", syn3d_calls, syn3d_args)
     mark("breakdown")
     launches = {"eval": eval_launches, "train": train_launches,
                 "affine": {"fp32": affine_launches}, "deform": {"fp32": deform_launches},
-                "syn": {"fp32": syn_launches}, "syn3d": {"fp32": syn3d_launches}}
+                "syn": {"fp32": syn_launches}, "syn3d": {"fp32": syn3d_launches},
+                "pwc_eval": pwc_launches["eval"], "pwc_train": pwc_launches["train"]}
     for row in kernels:
         dtype = "bf16" if row["name"].endswith("_bf16") else "fp32"
         row["launches"] = launches[row.pop("_path")][dtype][row.pop("_counter")]

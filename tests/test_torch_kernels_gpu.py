@@ -34,7 +34,7 @@ from tpureg_torch.ops import (
 )
 from tpureg_torch.classical import exp_velocity3d
 from tpureg_torch.classical.syn import _compose
-from tpureg_torch.ops.warp import _Sample3dKernel
+from tpureg_torch.ops.warp import _Sample3dKernel, warp2d
 
 pytestmark = pytest.mark.gpu
 
@@ -131,6 +131,12 @@ K2_CASES = [
     ((1, 70, 12, 45), 20, 1),    # K = 41: more shared memory than 48 KB
     ((2, 64, 64, 64), 4, 1),     # PWC at a width of two column tiles
     ((1, 32, 16, 80), 20, 2),    # three column tiles, windows clipped at both ends
+    # PWC's five levels at 256², batch 8
+    ((8, 196, 4, 4), 4, 1),
+    ((8, 128, 8, 8), 4, 1),
+    ((8, 96, 16, 16), 4, 1),
+    ((8, 64, 32, 32), 4, 1),
+    ((8, 32, 64, 64), 4, 1),
 ]
 
 
@@ -308,14 +314,19 @@ def test_warp_dimg_matches_plain(dev, dtype, shape, scale):
         _bf16_close(got, want, atol=1e-5)
 
 
-def _smooth_positions(dev, b, h, w, amp, seed):
-    """The pixel grid plus a smooth displacement of about ``amp`` px (bicubic
+def _smooth_flow(dev, b, h, w, amp, seed):
+    """A smooth displacement [B, 2, h, w] of about ``amp`` px (bicubic
     upsampling of noise on a grid 16 times coarser)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     coarse = torch.randn((b, 2, max(h // 16, 2), max(w // 16, 2)), device=dev,
                          generator=g) * amp
-    flow = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bicubic",
+    return torch.nn.functional.interpolate(coarse, size=(h, w), mode="bicubic",
                                            align_corners=True)
+
+
+def _smooth_positions(dev, b, h, w, amp, seed):
+    """The pixel grid plus ``_smooth_flow``."""
+    flow = _smooth_flow(dev, b, h, w, amp, seed)
     px = torch.arange(w, device=dev, dtype=torch.float32) + flow[:, 0]
     py = torch.arange(h, device=dev, dtype=torch.float32)[:, None] + flow[:, 1]
     return px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
@@ -404,6 +415,69 @@ def test_warp_k4_and_k5_at_syn_compositions(dev, shape):
     torch.testing.assert_close(dpy, wpy, atol=1e-6, rtol=1e-5)
     # fp32 sums by atomics in an order that changes from run to run
     torch.testing.assert_close(dimg, dimg_want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 128, 8, 8), (8, 96, 16, 16),
+                                   (8, 64, 32, 32), (8, 32, 64, 64)])
+def test_warp_kernels_at_pwc_feature_warps(dev, dtype, shape):
+    """PWC's four feature warps at 256², batch 8, at the "pwc" positions of
+    a smooth flow, (flow + xy)·size/(size - 1) - 0.5: K3's and K4's sample
+    the plain one to the last bit, K4's bases and K5 as in the tests above
+    (W = 8 and 16 take K3's and K5's ragged paths)."""
+    b, c, h, w = shape
+    flow = _smooth_flow(dev, b, h, w, 2.0, seed=30)
+    px = (torch.arange(w, device=dev) + flow[:, 0]) * (w / (w - 1)) - 0.5
+    py = (torch.arange(h, device=dev)[:, None] + flow[:, 1]) * (h / (h - 1)) - 0.5
+    px, py = px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
+    g = torch.Generator(device=dev).manual_seed(31)
+    img = torch.rand(shape, device=dev, generator=g).to(dtype)
+    out, dpx, dpy = sample2d_taps_cuda(img, px, py)
+    want, wpx, wpy = sample2d_taps_reference(img, px, py)
+    k3 = sample2d_cuda(img, px, py)
+    grad = torch.randn((b, c, h * w), device=dev, generator=g)
+    dimg = sample2d_dimg_cuda(grad, px, py, shape, dtype)
+    dimg_want = sample2d_dimg_reference(grad, px, py, shape, dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k3, want, atol=0, rtol=0)
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    torch.testing.assert_close(dpx, wpx, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(dpy, wpy, atol=1e-6, rtol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dimg, dimg_want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(dimg, dimg_want, atol=1e-5)
+
+
+@pytest.mark.parametrize("threshold", [0.9999, 0.999])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pwc_warp_samples_its_mask_on_k3(dev, dtype, threshold):
+    """The "pwc" warp through autograd on the card: the features' sample on
+    K4, its cotangents on K5 and the reductions, the mask's ones image on K3
+    (its positions detached), in the features' dtype; output, mask and both
+    cotangents agree with the CPU's plain path (masks equal)."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    img = torch.rand((2, 32, 16, 16), device=dev, generator=g).to(dtype)
+    flow = _smooth_flow(dev, 2, 16, 16, 2.0, seed=33)
+    cot = torch.randn((2, 32, 16, 16), device=dev, generator=g)
+    counts = lambda: (sample2d_cuda.launches, sample2d_taps_cuda.launches,
+                      sample2d_dimg_cuda.launches)
+    before = counts()
+    x, f = img.clone().requires_grad_(), flow.clone().requires_grad_()
+    out, mask = warp2d(x, f, "pwc", return_mask=True, mask_threshold=threshold)
+    assert mask.dtype == dtype and mask.grad_fn is None
+    gx, gf = torch.autograd.grad(out, (x, f), cot.to(dtype))
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    xc, fc = img.cpu().requires_grad_(), flow.cpu().requires_grad_()
+    oc, mc = warp2d(xc, fc, "pwc", return_mask=True, mask_threshold=threshold)
+    gxc, gfc = torch.autograd.grad(oc, (xc, fc), cot.cpu().to(dtype))
+    assert torch.equal(mask.cpu(), mc)
+    tol = {"atol": 1e-5, "rtol": 1e-5} if dtype == torch.float32 else \
+        {"atol": 1e-2, "rtol": 1e-2}
+    torch.testing.assert_close(out.cpu().float(), oc.float(), **tol)
+    torch.testing.assert_close(gx.cpu().float(), gxc.float(), **tol)
+    torch.testing.assert_close(gf.cpu().float(), gfc.float(), **tol)
 
 
 def test_syn_compose_autograd_runs_k4_and_k5_once(dev):

@@ -5,20 +5,27 @@ Writes the numpy fixture corpus of ``tools/make_fixtures.py`` (8 OASIS-format
 Analyze subjects, a shared template anatomy with per-subject smooth
 deformations) to a temporary directory, trains FlowNet2 self-supervised on
 its slices through ``make_train_step`` (bf16, batch 16, 256², elastic
-synthesis of magnitude (0, aug_hi) px), and scores on the same real
-inter-subject pairs (the inference CLI's ``real_pairs_dataset``), by Dice
-over labels 1-3:
+synthesis of magnitude (0, aug_hi) px, Adam at 1e-4, then, with
+``decay_steps``, a phase at 1e-5 with fresh Adam moments), and scores on
+the same real inter-subject pairs (the inference CLI's
+``real_pairs_dataset``), by Dice over labels 1-3:
 
 - identity        (no registration: the inter-subject misalignment floor)
 - classical SyN   (``register_syn(..., (10, 0, 0))``, the reference's
                    comparator configuration)
-- deep model      (the trained FlowNet2's eval step in bf16)
+- deep model      (the trained model's eval step in bf16)
 
-The defaults are the recipe that passed on the reference's accelerator:
-2000 steps at aug_hi 3.0. Prints the Dice table and PASS (deep >= SyN,
-exit 0) or FAIL (exit 1). Needs one CUDA card; about 6 minutes on an H100.
+The defaults are FlowNet2's recipe that passed on the reference's
+accelerator: 2000 steps at aug_hi 3.0 and no decay phase (about 6 minutes
+on an H100). pwc-reg's was 3500 steps and 700 more at 1e-5:
+
+    python torch_quality_real.py 3500 3.0 pwc-reg 700
+
+Prints the Dice table and PASS (deep >= SyN, exit 0) or FAIL (exit 1).
+Needs one CUDA card.
 
     python torch_quality_real.py [train_steps=2000] [aug_hi=3.0]
+                                 [model=flownet2] [decay_steps=0]
 """
 
 import os
@@ -40,7 +47,6 @@ from tpureg_torch.train import (create_train_state, default_loss_kwargs,
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EVAL_BATCHES = 4
 EVAL_B = 8
-MODEL = "flownet2"
 
 
 def dice_batch(warped_seg, fixed_seg):
@@ -56,7 +62,8 @@ def card_line():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def main(train_steps: int = 2000, aug_hi: float = 3.0):
+def main(train_steps: int = 2000, aug_hi: float = 3.0, model_name: str = "flownet2",
+         decay_steps: int = 0):
     if not torch.cuda.is_available():
         sys.exit("torch_quality_real.py: no CUDA card found")
     dev = torch.device("cuda")
@@ -66,35 +73,50 @@ def main(train_steps: int = 2000, aug_hi: float = 3.0):
         subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_fixtures.py"),
                         fix, "8"], check=True, stdout=subprocess.DEVNULL)
         print(f"fixtures written in {time.time() - t0:.0f}s", flush=True)
-        return run(fix, dev, train_steps, aug_hi)
+        return run(fix, dev, train_steps, aug_hi, model_name, decay_steps)
 
 
-def run(fix, dev, train_steps, aug_hi):
-    train_ds, _, _, n_train, _ = volume2slices_datasets(
-        os.path.join(fix, "img"), os.path.join(fix, "seg"), batch_size=16,
-        device=dev, with_seg=False, magnitude=(0.0, aug_hi))
-    model = OpticalFlowReg(MODEL, generator=torch.Generator().manual_seed(0)).to(dev)
-    state = create_train_state(model, learning_rate=1e-4)
-    loss_kwargs = default_loss_kwargs(MODEL)
-    train_step = make_train_step(state, loss_kwargs, compute_dtype=torch.bfloat16)
-    eval_step = make_eval_step(model, loss_kwargs, compute_dtype=torch.bfloat16)
-
-    print(f"training {MODEL} on the fixture corpus ({n_train} slices an epoch): "
-          f"{train_steps} steps (batch 16, 256², bf16, elastic magnitude "
-          f"(0, {aug_hi}) px)", flush=True)
-    t0 = time.time()
-    done, epoch = 0, 0
-    while done < train_steps:
+def train(train_ds, train_step, steps, epoch):
+    """``steps`` steps from epoch ``epoch`` on; returns the next epoch and
+    the last step's loss (read once, at the end)."""
+    done = 0
+    while done < steps:
         train_ds.set_epoch(epoch)
         for batch in train_ds:
             m = train_step(batch["image_c"])
             done += 1
-            if done >= train_steps:
+            if done >= steps:
                 break
         epoch += 1
-    final_loss = float(m["loss"])  # waits for the last step
+    return epoch, float(m["loss"])  # waits for the last step
+
+
+def run(fix, dev, train_steps, aug_hi, model_name="flownet2", decay_steps=0):
+    train_ds, _, _, n_train, _ = volume2slices_datasets(
+        os.path.join(fix, "img"), os.path.join(fix, "seg"), batch_size=16,
+        device=dev, with_seg=False, magnitude=(0.0, aug_hi))
+    model = OpticalFlowReg(model_name,
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    state = create_train_state(model, learning_rate=1e-4)
+    loss_kwargs = default_loss_kwargs(model_name)
+    train_step = make_train_step(state, loss_kwargs, compute_dtype=torch.bfloat16)
+    eval_step = make_eval_step(model, loss_kwargs, compute_dtype=torch.bfloat16)
+
+    print(f"training {model_name} on the fixture corpus ({n_train} slices an "
+          f"epoch): {train_steps} steps (batch 16, 256², bf16, elastic magnitude "
+          f"(0, {aug_hi}) px)", flush=True)
+    t0 = time.time()
+    epoch, final_loss = train(train_ds, train_step, train_steps, 0)
     print(f"trained in {time.time() - t0:.0f}s over {epoch} epochs (final loss "
           f"{final_loss:.1f})", flush=True)
+    if decay_steps:
+        # the lr-decay phase of tpureg's gate: fresh Adam moments at 1e-5
+        decay = make_train_step(create_train_state(model, learning_rate=1e-5),
+                                loss_kwargs, compute_dtype=torch.bfloat16)
+        t0 = time.time()
+        epoch, final_loss = train(train_ds, decay, decay_steps, epoch)
+        print(f"decay phase (+{decay_steps} steps at 1e-5) in {time.time() - t0:.0f}s "
+              f"(final loss {final_loss:.1f})", flush=True)
 
     eval_ds, n_pairs = real_pairs_dataset(
         os.path.join(fix, "fiximg"), os.path.join(fix, "fixseg"),
@@ -102,7 +124,7 @@ def run(fix, dev, train_steps, aug_hi):
         batch_size=EVAL_B, device=dev)
     print(f"evaluating on {EVAL_BATCHES}x{EVAL_B} of {n_pairs} real inter-subject "
           f"pairs", flush=True)
-    deep = f"deep({MODEL})"
+    deep = f"deep({model_name})"
     scores = {"identity": [], "syn(10,0,0)": [], deep: []}
     seconds = {"syn(10,0,0)": 0.0, deep: 0.0}
     for bi, batch in enumerate(eval_ds):
@@ -140,4 +162,6 @@ def run(fix, dev, train_steps, aug_hi):
 
 if __name__ == "__main__":
     raise SystemExit(main(int(sys.argv[1]) if len(sys.argv) > 1 else 2000,
-                          float(sys.argv[2]) if len(sys.argv) > 2 else 3.0))
+                          float(sys.argv[2]) if len(sys.argv) > 2 else 3.0,
+                          sys.argv[3] if len(sys.argv) > 3 else "flownet2",
+                          int(sys.argv[4]) if len(sys.argv) > 4 else 0))

@@ -24,7 +24,6 @@ from functools import partial
 import torch
 
 from ..data import random_pair_batch, synth_image_batch, volume2slices_datasets
-from ..models import build_predictor
 from ..reg import OpticalFlowReg
 from ..train import (
     create_train_state,
@@ -125,7 +124,8 @@ def build_argparser():
     p.add_argument("--img_dir", default="OASIS1/masked", metavar="DIR_Img")
     p.add_argument("--seg_dir", default="OASIS1/seg", metavar="DIR_Seg")
     p.add_argument("--model", default="flownet2",
-                   help="flownet2 (the registry names ported so far)")
+                   help="flownet2, pwc, pwc-bilinear or pwc-reg (the "
+                        "registry names ported so far)")
     p.add_argument("--epochs", default=4, type=int)
     p.add_argument("--batch_size", default=24, type=int)
     p.add_argument("--lrIni", default=1e-4, type=float)
@@ -169,7 +169,7 @@ def main(argv=None, device=None):
     model.to(dev)
     state = create_train_state(model, learning_rate=lr, adam_eps=args.lrMin)
     # checkpoint paths are keyed by predictor class name (train.py:127)
-    predictor_name = type(build_predictor(args.model)).__name__
+    predictor_name = type(model.predictor).__name__
 
     starting_epoch, best_loss = 0, float(1e5)
     if args.cp:

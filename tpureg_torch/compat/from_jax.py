@@ -7,8 +7,9 @@ pair maps onto them exactly as tpureg's own torch export maps it
 (``tpureg/compat/torch_export.py``). This module is the port's copy of that
 mapping: ``_translate`` (torch key → flax path, kind) and ``_invert`` (flax
 layout → torch layout) are copied from ``tpureg/compat/torch_import.py:72-130``
-(FlowNet-family keys)
-and ``torch_export.py:45-56``. The trees come in as nested dicts of numpy
+(FlowNet- and PWC-family keys; PWC's ``deconvN`` and ``upfeatN`` are bare
+transposed convolutions, not ``Sequential`` members) and
+``torch_export.py:45-56``. The trees come in as nested dicts of numpy
 arrays, so nothing here needs JAX.
 
 Layouts: conv kernels HWIO → OIHW; transposed-conv kernels, stored by
@@ -43,6 +44,7 @@ __all__ = ["state_dict_from_jax", "state_dict_from_jax_3d",
 
 _UPFLOW_RE = re.compile(r"upsampled_flow(\d)_to_(\d)")
 _UPFLOW_FLAX_RE = re.compile(r"^upflow(\d)to(\d)$")
+_BARE_DECONV_RE = re.compile(r"^(deconv\d|upfeat\d)$")
 # module paths of the 3-D models' flax trees
 _MODULE_3D_RE = re.compile(r"^((enc|dec|extra)\d+/conv|flow_head|conv\d+|fc)$")
 _BN_TO_TORCH = {"scale": "weight", "bias": "bias", "mean": "running_mean",
@@ -56,8 +58,8 @@ def _conv_leaf(leaf: str) -> str:
 def _translate(key: str) -> Optional[Tuple[List[str], str, str]]:
     """torch key → (flax path segments, leaf name, kind), kind one of
     'conv', 'deconv', 'bn_param', 'bn_stat'; None for keys with no flax
-    counterpart (num_batches_tracked). The port has no dense layers and no
-    bare PWC deconvs yet, so tpureg's branches for those are not copied."""
+    counterpart (num_batches_tracked). The port's 2-D models have no dense
+    layers, so tpureg's branch for those is not copied."""
     parts = key.split(".")
     leaf = parts[-1]
     if leaf == "num_batches_tracked":
@@ -77,7 +79,7 @@ def _translate(key: str) -> Optional[Tuple[List[str], str, str]]:
         if leaf not in kinds:
             return None
         return base, kinds[leaf][0], kinds[leaf][1]
-    if last.startswith("upflow"):
+    if last.startswith("upflow") or _BARE_DECONV_RE.match(last):
         return mods, _conv_leaf(leaf), "deconv"
     return mods, _conv_leaf(leaf), "conv"  # bare conv (predict_flow*, ...)
 

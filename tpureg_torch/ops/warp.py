@@ -1,16 +1,18 @@
 """Bilinear and trilinear backward warping, the counterpart of
 ``tpureg/ops/warp.py``.
 
-Two of the reference's 2-D grid conventions are ported:
+The reference's three 2-D grid conventions:
 
 - ``"stn"``: the registration head's spatial transformer, which samples at
   ``p = (flow + xy) * (size-1)/size`` with zero padding;
-- ``"pixel"``: FlowNet2's Resample2d, which samples at ``p = xy + flow``.
+- ``"pixel"``: FlowNet2's Resample2d, which samples at ``p = xy + flow``;
+- ``"pwc"``: PWC-Net's feature warp, which samples at
+  ``p = (flow + xy) * size/(size-1) - 0.5`` and multiplies the sample by a
+  validity mask (a ones image sampled at the same positions, thresholded).
 
-The PWC convention comes with the slice that uses it. Images are NCHW;
-flows are ``[B, 2, h, w]`` with channel 0 the x and channel 1 the y
-displacement. Volumes are NCDHW; 3-D flows are ``[B, 3, D, H, W]`` with
-channels (u_x, u_y, u_z), tpureg's last axis.
+Images are NCHW; flows are ``[B, 2, h, w]`` with channel 0 the x and
+channel 1 the y displacement. Volumes are NCDHW; 3-D flows are
+``[B, 3, D, H, W]`` with channels (u_x, u_y, u_z), tpureg's last axis.
 
 ``sample2d`` and ``sample3d`` send a CUDA tensor to the hand-written kernels
 and a CPU tensor to the plain gathers and autograd; there is no other route.
@@ -294,22 +296,55 @@ def sample2d_nearest(img, px, py):
     return (vals * inb[:, None, :].to(img.dtype)).reshape(out_shape)
 
 
-def warp2d(img, flow, convention: str = "stn"):
-    """Backward-warp NCHW ``img`` by ``flow`` [B, 2, h, w] (x, y displacement)."""
+def warp2d(img, flow, convention: str = "stn", return_mask: bool = False,
+           mask_threshold: float = 0.9999):
+    """Backward-warp NCHW ``img`` by ``flow`` [B, 2, h, w] (x, y displacement).
+
+    For ``"pwc"`` the output is multiplied by the thresholded validity mask,
+    and ``return_mask=True`` returns ``(masked output, mask)``, the mask
+    [B, 1, h, w]; ``mask_threshold`` is 0.9999 for ``PWCDCNet`` and 0.999 for
+    ``PWCDCNetOld``.
+    """
     _, _, h, w = flow.shape
     grid = base_grid(h, w, flow.device)
     px = grid[..., 0] + flow[:, 0].float()
     py = grid[..., 1] + flow[:, 1].float()
+    mask = None
     if convention == "stn":
         # grid*2/size - 1, then grid_sample(align_corners=True):
         # p_src = (flow + xy) * (size-1)/size
         px = px * ((w - 1) / w)
         py = py * ((h - 1) / h)
+        out = sample2d(img, px, py)
     elif convention == "pwc":
-        raise NotImplementedError("the 'pwc' warp convention comes with the PWC slice")
-    elif convention != "pixel":
+        # 2*(flow + xy)/(size-1) - 1, then grid_sample(align_corners=False):
+        # p_src = (flow + xy) * size/(size-1) - 0.5
+        px = px * (w / max(w - 1, 1)) - 0.5
+        py = py * (h / max(h - 1, 1)) - 0.5
+        out = sample2d(img, px, py)
+        mask = _pwc_mask(img, px.detach(), py.detach(), mask_threshold)
+        out = out * mask
+    elif convention == "pixel":
+        out = sample2d(img, px, py)
+    else:
         raise ValueError(f"unknown warp convention: {convention}")
-    return sample2d(img, px, py)
+    return (out, mask) if return_mask else out
+
+
+def _pwc_mask(img, px, py, threshold):
+    """The "pwc" validity mask [B, 1, ...] (the positions' shape) in
+    ``img``'s dtype: a ones image sampled at the positions, 0 where the sample falls below ``threshold``
+    and 1 elsewhere. tpureg samples a C-channel ones image whose channels
+    are all equal; one channel broadcasts to the same mask. The sample is
+    rounded to ``img``'s dtype and compared there, as tpureg compares (in
+    bf16 the threshold 0.9999 rounds to 1.0). The positions come detached,
+    so on the card the sample is K3's, and the mask has no gradient, as
+    tpureg's ``where`` gives none."""
+    b, _, h, w = img.shape
+    ones = torch.ones((b, 1, h, w), dtype=img.dtype, device=img.device)
+    valid = sample2d(ones, px, py)
+    cut = torch.tensor(threshold, dtype=img.dtype, device=img.device)
+    return torch.where(valid < cut, 0.0, 1.0).to(img.dtype)
 
 
 # ---------------------------------------------------------------------------

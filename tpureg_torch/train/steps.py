@@ -168,7 +168,10 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
             with torch.enable_grad():
                 _, metrics = _loss_terms(model, mb, None, loss_kwargs,
                                          compute_dtype)
-                g = torch.autograd.grad(metrics["loss"], params)
+                # a parameter the forward never reads (PWC's deconv0) gets
+                # a zero gradient, as tpureg's does
+                g = torch.autograd.grad(metrics["loss"], params,
+                                        materialize_grads=True)
             terms = torch.stack([metrics[k].detach() for k in _TERMS])
             if grads is None:
                 grads, sums = list(g), terms
