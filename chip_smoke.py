@@ -8,13 +8,14 @@
    FlowNetC's shape, fp32 and bf16, at PWC's five (md 4, s2 1) levels at
    256², batch 8, at a window wider than K1's widest tile, at s2 not
    dividing md and at ragged shapes;
-4. K3 (bilinear warp), K4 (warp with position-derivative bases) and K5
-   (the warp's image cotangent) against their plain versions at 256², B=8,
-   on smooth and scattered positions, fp32 and bf16, and with C > 1; K3 also
-   where its rows cannot take vector loads (odd P, positions at an
-   odd storage offset), equal to the plain gather and to K4's sample; K5
-   also at SyN's compose (1 x 2 x 256²) and PWC's level 2 (8 x 32 x 64²)
-   on smooth fields, at permuted positions and at P != H * W;
+4. K3 (bilinear warp), K4 (the warp's positions' cotangent Σ_c g·∂out/∂p)
+   and K5 (the warp's image cotangent) against their plain versions at
+   256², B=8, on smooth and scattered positions, fp32 and bf16, and with
+   C > 1, each cotangent on a seeded N(0, 1) cotangent; K3 also where its
+   rows cannot take vector loads (odd P, positions at an odd storage
+   offset), equal to the plain gather; K5 also at SyN's compose
+   (1 x 2 x 256²) and PWC's level 2 (8 x 32 x 64²) on smooth fields, at
+   permuted positions and at P != H * W;
 4c. K6a (trilinear 3-D warp), K6b (the positions' cotangent Σ_c g·∂out/∂p)
    and K6c (the volume's cotangent) against their plain versions at the 3-D
    path's shapes (the final warp, 2 x 1 x 176 x 256 x 256; a composition's
@@ -30,8 +31,8 @@
    held against the same weights on the CPU through the plain versions;
 6. the inference CLI (``--mode real``) on phantom Analyze volumes;
 7. the train path: the FlowNet2 train step at 256², batch 8, in fp32 (no
-   TF32) and bf16; the counters must show 1 K1, 1 K2 and 6 K4 launches per
-   step and no K3 or K5; the loss falls over 5 steps on one batch; at batch
+   TF32) and bf16; the counters must show 1 K1, 1 K2, 6 K3 and 5 K4
+   launches per step and no K5; the loss falls over 5 steps on one batch; at batch
    1 the card's fp32 gradients are held against the CPU's plain path,
    both measured against the CPU's fp64 gradient;
 8. the training CLI on 10 phantom volumes: one epoch, a resume with
@@ -52,7 +53,7 @@
    --synthetic 2``;
 8e. the 2-D classical comparator: ``register_syn`` at 256², batch 1,
    (10, 0, 0), masked by fixed > 0, on a phantom and its elastic
-   deformation: 70 K4, 60 K5 and 7 K3 launches; the local NCC rises; the
+   deformation: 77 K3, 70 K4 and 60 K5 launches; the local NCC rises; the
    card's flow and warped image held against the CPU's plain path;
 8f. the comparator CLI (``tpureg_torch.cli.inference_ants``) in ``--mode
    real`` and ``--mode synthetic`` on phase 6's phantom volumes: finite
@@ -64,8 +65,8 @@
    32 x 64 x 64 and (10, 0, 0) the card held against the CPU's plain path;
 8h. the PWC family: a seeded pwc-reg head at its published widths runs the
    eval step (with segmentations) and the train step at 256², batch 8, in
-   fp32 and bf16: 5 K1 and 17 K3 launches an eval step; 5 K1, 5 K2, 12 K4,
-   4 K3 (the masks) and 4 K5 a train step; the loss falls over 5 steps; at
+   fp32 and bf16: 5 K1 and 17 K3 launches an eval step; 5 K1, 5 K2, 16 K3,
+   6 K4 and 4 K5 a train step; the loss falls over 5 steps; at
    batch 1 the eval flows and losses and the fp32 gradient are held against
    the CPU's plain path, and so are the forwards of pwc, pwc-bilinear and
    pwc-old (its module alone, on a 6-channel pair, in both modes); the
@@ -74,16 +75,19 @@
    volumes) and ``--mode synthetic``;
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
-   ``grid_sampler_2d_backward`` for K4 and K5, ``grid_sampler_3d_backward``
+   ``grid_sampler_2d_backward`` for K4 (d/dgrid) and K5 (d/dinput),
+   ``grid_sampler_3d_backward``
    for K6b and K6c; K6a also at a composition's shape, K6b also at the
    deform step's own first-composition positions, K6c at its first and last;
    K1's and K2's bounds on the tensor-core pipe they use beside their
    fp32-pipe bounds; K1 also at PWC's 8 x 64 x 32², md 4, s2 1; K5 also at
    SyN's and PWC's shapes; K3, K4, K5 and K6a-c at the comparators' own
-   compositions; K1 and K2 at PWC's level-2 and level-6 shapes; K4 and K5
-   at PWC's four feature warps, and K4, the two reductions and K5 as one
-   number against ``grid_sample`` and ``grid_sampler_2d_backward``; K3 on
-   PWC's mask),
+   compositions; K1 and K2 at PWC's level-2 and level-6 shapes; K3, K4
+   and K5 at PWC's four feature warps, and K3, K4 and K5 as one number
+   against ``grid_sample`` and ``grid_sampler_2d_backward``; K3 on PWC's
+   mask; the 2-D node's forward and positions' backward, K3 + K4, against
+   ``grid_sample`` + d/dgrid at six shapes: PWC's four feature warps,
+   FlowNet2's stn positions and SyN's composition),
    the eval and train steps of FlowNet2 and pwc-reg at batch 8 and the 3-D
    train steps at batch 2, whole 2-D and 3-D registrations, peak memory;
 10. a torch.profiler breakdown of one eval, one train and one step of each
@@ -138,8 +142,9 @@ from tpureg_torch.ops.warp import (
     sample2d_cuda,
     sample2d_dimg_cuda,
     sample2d_dimg_reference,
+    sample2d_dpos_cuda,
+    sample2d_dpos_reference,
     sample2d_gather,
-    sample2d_taps_cuda,
     sample2d_taps_reference,
     sample3d_cuda,
     sample3d_dpos_cuda,
@@ -174,7 +179,7 @@ TF32_FLOPS = 495e12                     # TF32 tensor cores, dense
 COUNTERS = {"correlation": correlation_cuda,
             "correlation_bwd": correlation_bwd_cuda,
             "warp2d": sample2d_cuda,
-            "warp2d_taps": sample2d_taps_cuda,
+            "warp2d_dpos": sample2d_dpos_cuda,
             "warp2d_dimg": sample2d_dimg_cuda,
             "warp3d": sample3d_cuda,
             "warp3d_dpos": sample3d_dpos_cuda,
@@ -187,10 +192,12 @@ def launches_of(**nonzero):
 
 
 EVAL_LAUNCHES = launches_of(correlation=1, warp2d=7)
-# FlowNetC's correlation and its backward; K4 for the four warps of the
-# cascade and the head's image and grid warps, whose positions need
-# gradients; every warped image is an input, so no K5
-TRAIN_LAUNCHES = launches_of(correlation=1, correlation_bwd=1, warp2d_taps=6)
+# FlowNetC's correlation and its backward; every 2-D sample runs K3
+# forward: the four warps of the cascade and the head's image and grid
+# warps; K4 runs in the backward of each node the loss reaches, the
+# cascade's four and the head's image warp (the warped grid is not in the
+# loss); every warped image is an input, so no K5
+TRAIN_LAUNCHES = launches_of(correlation=1, correlation_bwd=1, warp2d=6, warp2d_dpos=5)
 # every 3-D sample runs K6a forward: the data synthesis's warp of each
 # moving volume (no gradient) and the step's affine warp, whose backward
 # differentiates the positions only (K6b)
@@ -201,22 +208,24 @@ AFFINE_LAUNCHES = launches_of(warp3d=2, warp3d_dpos=1)
 # input
 DEFORM_LAUNCHES = launches_of(warp3d=8, warp3d_dpos=8, warp3d_dvol=7)
 # register_syn, (10, 0, 0): each of the 10 iterations at 64² runs 6
-# compositions whose field and positions need a gradient (K4 forward, K5
-# backward) and the moving image's warp, whose positions do (K4); the
-# final exponential and warp at 256² run under no_grad (6 + 1 K3)
-SYN_LAUNCHES = launches_of(warp2d=7, warp2d_taps=70, warp2d_dimg=60)
+# compositions whose field and positions need a gradient (K3 forward, K4
+# and K5 backward) and the moving image's warp, whose positions do (K3; K4);
+# the final exponential and warp at 256² run under no_grad (6 + 1 K3)
+SYN_LAUNCHES = launches_of(warp2d=10 * 7 + 7, warp2d_dpos=70, warp2d_dimg=60)
 # pwc-reg's eval step: K1 at the 5 pyramid levels; K3 for the 4 feature
 # warps (no gradient under inference_mode), their 4 validity masks, the
 # head's 7 image warps (one a flow), the segmentation and the grid
 PWC_EVAL_LAUNCHES = launches_of(correlation=5, warp2d=17)
-# pwc-reg's train step: K1 and K2 at the 5 levels; K4 for the 4 feature
-# warps, the head's 7 image warps and the grid, whose positions need
-# gradients (12: the loss reads the finest 2 flows, but the head warps the
-# moving image at all 7 and the grid at the finest); the 4 masks sample at
-# detached positions (K3); the warped moving features need their cotangent
-# (K5); the moving image and the grid are inputs
-PWC_TRAIN_LAUNCHES = launches_of(correlation=5, correlation_bwd=5, warp2d=4,
-                                 warp2d_taps=12, warp2d_dimg=4)
+# pwc-reg's train step: K1 and K2 at the 5 levels; K3 for every sample:
+# the 4 feature warps, their 4 masks, the head's 7 image warps and the grid
+# (16); K4 where the backward reaches a node whose positions need a
+# gradient: the 4 feature warps and the head's warps of the finest 2 flows,
+# the ones the loss reads (6; the 5 coarser image warps and the grid are
+# not in the loss, and the masks' positions are detached); the warped
+# moving features need their cotangent (K5); the moving image and the grid
+# are inputs
+PWC_TRAIN_LAUNCHES = launches_of(correlation=5, correlation_bwd=5, warp2d=16,
+                                 warp2d_dpos=6, warp2d_dimg=4)
 # register_syn3d, (30, 20, 10): each of the 60 iterations runs 6
 # compositions (K6a; K6b and K6c backward) and the moving volume's warp
 # (K6a; K6b); the final exponential and warp run K6a only (6 + 1)
@@ -310,13 +319,15 @@ def correlation_bwd_work(shape, md, s2, dtype, gdtype):
     return nbytes, 2 * fwd_flops
 
 
-def warp_taps_work(img, p):
-    """(bytes, flops) of K4's function: the image and positions read once,
-    the sample and two bases written once in fp32; 8 FLOP of weights per
-    position and 17 per channel (7 for the sample, 5 for each base)."""
-    b, c, h, w = img.shape
-    nbytes = img.numel() * img.element_size() + 2 * b * p * 4 + 3 * b * c * p * 4
-    return nbytes, b * p * (8 + 17 * c)
+def warp_dpos_work(img, p):
+    """(bytes, flops) of K4's function, the positions' cotangent: the image,
+    the two position arrays and the fp32 cotangent [B, C, P] read once, dpx
+    and dpy [B, P] written once in fp32; 4 FLOP of fractions per position,
+    10 for the two bases and 4 for the contraction per channel."""
+    b, c = img.shape[:2]
+    nbytes = (img.numel() * img.element_size() + 2 * b * p * 4 + b * c * p * 4
+              + 2 * b * p * 4)
+    return nbytes, b * p * (4 + 14 * c)
 
 
 def warp_dimg_work(shape, p, dtype):
@@ -608,7 +619,7 @@ def offset_view(t):
 
 
 def check_warp():
-    phase("4. K3 bilinear warp against its plain version and K4's sample")
+    phase("4. K3 bilinear warp against its plain version")
     errs = {}
     # (label, shape, displacement std, positions at storage offset 1): the
     # eval path's shape at scattered positions, often out of the image; a
@@ -627,49 +638,33 @@ def check_warp():
                 require(float(px.min()) < 0 and float(py.max()) > SIZE,
                         "the warp check needs out-of-image taps")
             got = sample2d_cuda(img, px, py)
-            k4 = sample2d_taps_cuda(img, px, py)[0]
             want = sample2d_gather(img.float(), px, py).reshape(got.shape)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            exact = bool(torch.equal(got, want)) and bool(torch.equal(got, k4))
+            exact = bool(torch.equal(got, want))
             print(f"  {shape} P={px.shape[1]} {label} {str(dtype)[6:]}: max |kernel - "
-                  f"plain| = {err:.3g}; equal to the plain gather and K4's sample: "
-                  f"{exact} (tolerance 0: same roundings)")
-            require(exact, f"K3 disagrees with its plain version or K4 ({label}, {dtype})")
+                  f"plain| = {err:.3g}; equal to the plain gather: {exact} "
+                  f"(tolerance 0: same roundings)")
+            require(exact, f"K3 disagrees with its plain version ({label}, {dtype})")
             if label == "scattered":
                 errs[dtype] = err
     return errs
 
 
 def check_warp_grads():
-    phase("4b. K4 (warp with bases) and K5 (image cotangent) against their "
+    phase("4b. K4 (positions' cotangent) and K5 (image cotangent) against their "
           "plain versions")
-    errs = {"taps": {}, "dimg": {}}
+    errs = {"dpos": {}, "dimg": {}}
     cases = (("scattered", 60.0, (BATCH, 1, SIZE, SIZE)),
              ("smooth", 0.7, (BATCH, 1, SIZE, SIZE)),
              ("C=3", 20.0, (2, 3, 37, 53)))
     for label, scale, shape in cases:
         for dtype in (torch.float32, torch.bfloat16):
             img, px, py = warp_inputs(dtype, seed=7, scale=scale, shape=shape)
-            out, dpx, dpy = sample2d_taps_cuda(img, px, py)
-            k3 = sample2d_cuda(img, px, py)
-            want, wpx, wpy = sample2d_taps_reference(img, px, py)
-            torch.cuda.synchronize()
-            # the sample is K3's and the plain gather's, to the last bit; the
-            # bases are the same differences of tap values, associated
-            # otherwise than autograd's chain: a few fp32 roundings
-            exact = bool(torch.equal(out, k3)) and bool(torch.equal(out, want))
-            base_err = max(float((dpx - wpx).abs().max()), float((dpy - wpy).abs().max()))
-            bases_ok = all(bool(((x - y).abs() <= 1e-6 + 1e-5 * y.abs()).all())
-                           for x, y in ((dpx, wpx), (dpy, wpy)))
-            print(f"  K4 {shape} {label} {str(dtype)[6:]}: sample equal to K3's "
-                  f"and the plain one: {exact}; bases max |kernel - plain| = "
-                  f"{base_err:.3g} (tolerance 1e-6 abs + 1e-5 rel)")
-            require(exact and bases_ok, f"K4 disagrees ({label}, {dtype})")
-
+            pos_err = check_dpos(f"{shape} {label}", img, px, py)
             err = check_dimg(f"{shape} {label}", shape, px, py, dtype)
             if label == "smooth":
-                errs["taps"][dtype] = base_err
+                errs["dpos"][dtype] = pos_err
                 errs["dimg"][dtype] = err
     # K5 alone at the shapes of the 2-D paths to come: SyN's compose of a
     # smooth 2-channel field and PWC's level-2 feature warp; and positions
@@ -689,6 +684,31 @@ def check_warp_grads():
         for dtype in (torch.float32, torch.bfloat16):
             check_dimg(f"{shape} {label}, P={px.shape[1]}", shape, px, py, dtype)
     return errs
+
+
+def check_dpos(label, img, px, py, seed=8):
+    """K4 against its plain version on a seeded N(0, 1) cotangent; returns
+    the largest difference. Each channel's basis is the same differences of
+    tap values, associated otherwise than autograd's chain: a few fp32
+    roundings, within 1e-6 abs + 1e-5 rel of the basis (the tolerance the
+    bases had as K4's outputs); the contraction weights channel c's by
+    |g_c|, so at each position |K4 - plain| <= Σ_c |g_c| (1e-6 + 1e-5
+    |basis_c|). A bf16 image's taps are exact in fp32, so both dtypes take
+    the same tolerance."""
+    b, c = img.shape[:2]
+    grad = torch.randn((b, c, px.shape[1]), device=DEV,
+                       generator=torch.Generator(device=DEV).manual_seed(seed))
+    got = sample2d_dpos_cuda(grad, img, px, py)
+    want = sample2d_dpos_reference(grad, img, px, py)
+    _, *bases = sample2d_taps_reference(img, px, py)
+    torch.cuda.synchronize()
+    err = max(float((k - r).abs().max()) for k, r in zip(got, want))
+    ok = all(bool(((k - r).abs() <= (grad.abs() * (1e-6 + 1e-5 * base.abs())).sum(1)
+                   ).all()) for k, r, base in zip(got, want, bases))
+    print(f"  K4 {label} {str(img.dtype)[6:]}: max |kernel - plain| = {err:.3g} "
+          f"(tolerance Σ_c |g_c| (1e-6 + 1e-5 |basis_c|))")
+    require(ok, f"K4 disagrees ({label}, {img.dtype})")
+    return err
 
 
 def check_dimg(label, shape, px, py, dtype):
@@ -804,22 +824,18 @@ def check_pwc_warps():
                              generator=torch.Generator(device=DEV).manual_seed(lvl)
                              ).to(dtype)
             k3 = sample2d_cuda(img, px, py)
-            out, dpx, dpy = sample2d_taps_cuda(img, px, py)
-            want, wpx, wpy = sample2d_taps_reference(img, px, py)
+            want = sample2d_gather(img.float(), px, py)
             torch.cuda.synchronize()
-            # as phase 4b: the sample to the last bit, the bases to a few
-            # fp32 roundings
-            exact = bool(torch.equal(k3, want)) and bool(torch.equal(out, want))
-            base_err = max(float((dpx - wpx).abs().max()), float((dpy - wpy).abs().max()))
-            bases_ok = all(bool(((x - y).abs() <= 1e-6 + 1e-5 * y.abs()).all())
-                           for x, y in ((dpx, wpx), (dpy, wpy)))
-            print(f"  K3, K4 {shape} level {lvl} {str(dtype)[6:]}: samples equal to the "
-                  f"plain one: {exact}; K4's bases max |kernel - plain| = "
-                  f"{base_err:.3g} (tolerance 1e-6 abs + 1e-5 rel)")
-            require(exact and bases_ok, f"K3 or K4 disagrees at PWC level {lvl} ({dtype})")
+            # as phase 4: the sample to the last bit
+            exact = bool(torch.equal(k3, want))
+            k3_err = float((k3 - want).abs().max())
+            print(f"  K3 {shape} level {lvl} {str(dtype)[6:]}: equal to the plain "
+                  f"sample: {exact} (tolerance 0: same roundings)")
+            require(exact, f"K3 disagrees at PWC level {lvl} ({dtype})")
+            perr = check_dpos(f"{shape} PWC level {lvl}", img, px, py)
             derr = check_dimg(f"{shape} PWC level {lvl}", shape, px, py, dtype)
-            if dtype == torch.float32:
-                errs[lvl] = {"warp2d_taps": base_err, "warp2d_dimg": derr}
+            errs.setdefault(lvl, {})[dtype] = {"warp2d": k3_err, "warp2d_dpos": perr,
+                                               "warp2d_dimg": derr}
             # the warp and its mask on the card (K3 twice: the features,
             # then a 1-channel ones image in the features' dtype) against
             # the CPU's plain path, at both thresholds
@@ -1571,7 +1587,7 @@ def pwc_path(pair_dirs, train_dirs):
                 "pwc-reg inference --mode real: a metric is not finite")
         got = synthetic_eval_cli("pwc-reg", train_dirs, work)
         require(got["correlation"] == 2 * 5 and got["correlation_bwd"] == 0
-                and got["warp2d_taps"] == 0 and got["warp2d_dimg"] == 0,
+                and got["warp2d_dpos"] == 0 and got["warp2d_dimg"] == 0,
                 "pwc-reg inference --mode synthetic: launch counts")
     return ({"eval": eval_launches, "train": train_launches},
             {"eval": eval_steps, "train": train_steps}, imgs, segs)
@@ -1950,7 +1966,7 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
         scattered = time_ms(lambda: sample2d_cuda(rimg, rpx, rpy), 200)
         print(f"  warp2d{sfx}: kernel at scattered positions (flow std 60 px): "
               f"{scattered * 1e3:.2f} us")
-        lib = lib_taps = lib_dimg = None
+        lib = lib_dpos = lib_dimg = None
         if dtype == torch.float32:
             ref = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                                 align_corners=True).reshape(BATCH, 1, -1)
@@ -1962,14 +1978,15 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             # grid_sampler_2d_backward: d/dgrid for K4, d/dinput for K5
             dimg_lib, dgrid_lib = torch.ops.aten.grid_sampler_2d_backward(
                 cot_img, img, grid, 0, 0, True, [True, True])
-            _, dpx, _ = sample2d_taps_cuda(img, px, py)
-            dx = (cot * dpx).reshape(BATCH, SIZE, SIZE) * ((SIZE - 1) / 2)
-            print(f"  grid_sampler_2d_backward yardsticks agree with K4·g to "
+            dpx = sample2d_dpos_cuda(cot, img, px, py)[0]
+            dx = dpx.reshape(BATCH, SIZE, SIZE) * ((SIZE - 1) / 2)
+            print(f"  grid_sampler_2d_backward yardsticks agree with K4 to "
                   f"{float((dgrid_lib[..., 0] - dx).abs().max()):.3g} (of "
                   f"{float(dx.abs().max()):.3g}) and with K5 to "
                   f"{float((dimg_lib - sample2d_dimg_cuda(cot, px, py, shape)).abs().max()):.3g}")
-            lib_taps = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            lib_dpos = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
                 cot_img, img, grid, 0, 0, True, [False, True]), 200)
+            node_timings("FlowNet2's stn positions", img, px, py, cot, grid, True)
             lib_dimg = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
                 cot_img, img, grid, 0, 0, True, [True, False]), 200)
         else:
@@ -1986,13 +2003,13 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
             "warp2d" + sfx, "warp2d.cu", "tpureg/ops/warp_pallas.py:183", "warp2d",
             "eval", errs["warp"][dtype], ms, plain, warp_work(img, p),
             torch.float32, lib))
-        ms = time_ms(lambda: sample2d_taps_cuda(img, px, py), 200)
-        plain = time_ms(lambda: sample2d_taps_reference(img, px, py), 10,
+        ms = time_ms(lambda: sample2d_dpos_cuda(cot, img, px, py), 200)
+        plain = time_ms(lambda: sample2d_dpos_reference(cot, img, px, py), 10,
                         head_start_ms=100.0)
         kernels.append(kernel_row(
-            "warp2d_taps" + sfx, "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:197",
-            "warp2d_taps", "train", errs["taps"][dtype], ms, plain,
-            warp_taps_work(img, p), torch.float32, lib_taps))
+            "warp2d_dpos" + sfx, "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:197",
+            "warp2d_dpos", "train", errs["dpos"][dtype], ms, plain,
+            warp_dpos_work(img, p), torch.float32, lib_dpos))
         ms = time_ms(lambda: sample2d_dimg_cuda(cot, px, py, shape, dtype), 200)
         plain = time_ms(lambda: sample2d_dimg_reference(cot, px, py, shape, dtype),
                         10, head_start_ms=100.0)
@@ -2016,13 +2033,40 @@ def timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
     return kernels
 
 
+def node_timings(label, img, px, py, cot, grid, align_corners):
+    """The 2-D node's forward and positions' backward, as a train step runs
+    a warp whose image is an input: K3, then K4 on the cotangent ``cot``
+    [B, C, P], against ``grid_sample`` and ``grid_sampler_2d_backward``'s
+    d/dgrid on the same positions (``grid``); turns ours, library, library,
+    ours."""
+    backward = torch.ops.aten.grid_sampler_2d_backward
+    cot_img = cot.reshape(img.shape)
+
+    def ours():
+        sample2d_cuda(img, px, py)
+        return sample2d_dpos_cuda(cot, img, px, py)
+
+    def library():
+        F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                      align_corners=align_corners)
+        return backward(cot_img, img, grid, 0, 0, align_corners, [False, True])
+
+    # 2 launches a call: a head start long enough for the host to queue them
+    run = lambda fn: time_ms(fn, 100, head_start_ms=50.0)
+    t = [run(ours), run(library), run(library), run(ours)]
+    print(f"  node at {label} {tuple(img.shape)}, forward and positions' backward: "
+          f"K3 + K4 {t[0] * 1e3:.2f} / {t[3] * 1e3:.2f} us; grid_sample + d/dgrid "
+          f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} us (turns: ours, library, library, ours)")
+
+
 def pwc_timings(errs):
     """PWC's kernels at its own shapes: K1 and K2 at levels 2 and 6, fp32
-    and bf16; K4 and K5 at the four feature warps (fp32), each beside
-    ``grid_sampler_2d_backward``'s cotangent, then K4 with the backward's
-    two reductions and K5 as one number against ``grid_sample`` and
-    ``grid_sampler_2d_backward`` (both cotangents), the library's version of
-    the same forward and backward; K3 on the level-2 validity mask."""
+    and bf16; at the four feature warps K3 (fp32 and bf16) beside
+    ``grid_sample``, K4 and K5 (fp32) beside ``grid_sampler_2d_backward``'s
+    cotangents, the node's forward and positions' backward (K3 + K4), and
+    K3, K4 and K5 as one number against ``grid_sample`` and
+    ``grid_sampler_2d_backward`` (both cotangents), the library's version
+    of the same forward and backward; K3 on the level-2 validity mask."""
     rows = []
     for lvl, shape in ((2, (BATCH, 32, 64, 64)), (6, (BATCH, 196, 4, 4))):
         g = torch.Generator(device=DEV).manual_seed(50 + lvl)
@@ -2072,34 +2116,48 @@ def pwc_timings(errs):
         grid = torch.stack([(2 * px + 1) / h - 1, (2 * py + 1) / h - 1],
                            -1).reshape(BATCH, h, h, 2)
         dimg_lib, dgrid_lib = backward(cot_img, img, grid, 0, 0, False, [True, True])
-        _, dpx, _ = sample2d_taps_cuda(img, px, py)
-        dx = (cot * dpx).sum(1).reshape(BATCH, h, h) * (h / 2)
+        dx = sample2d_dpos_cuda(cot, img, px, py)[0].reshape(BATCH, h, h) * (h / 2)
         print(f"  PWC level {lvl} {shape}: grid_sampler_2d_backward agrees with "
-              f"Σ_c g·K4 to {float((dgrid_lib[..., 0] - dx).abs().max()):.3g} (of "
+              f"K4 to {float((dgrid_lib[..., 0] - dx).abs().max()):.3g} (of "
               f"{float(dx.abs().max()):.3g}) and with K5 to "
               f"{float((dimg_lib - sample2d_dimg_cuda(cot, px, py, shape)).abs().max()):.3g}")
-        ms = time_ms(lambda: sample2d_taps_cuda(img, px, py), 200)
-        plain = time_ms(lambda: sample2d_taps_reference(img, px, py), 3,
+        # K3, the feature warp's forward, in fp32 and bf16 (grid_sample takes
+        # its grid in the image's dtype, so the bf16 row has no yardstick)
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            im = img.to(dtype)
+            ms = time_ms(lambda: sample2d_cuda(im, px, py), 200)
+            plain = time_ms(lambda: sample2d_gather(im, px, py), 20, head_start_ms=100.0)
+            lib = None
+            if dtype == torch.float32:
+                lib = time_ms(lambda: F.grid_sample(im, grid, mode="bilinear",
+                                                    padding_mode="zeros",
+                                                    align_corners=False), 200)
+            rows.append(kernel_row(
+                f"warp2d_pwc_l{lvl}{sfx}", "warp2d.cu", "tpureg/ops/warp_pallas.py:183",
+                "warp2d", "pwc_train", errs[lvl][dtype]["warp2d"], ms, plain,
+                warp_work(im, p), torch.float32, lib))
+        ms = time_ms(lambda: sample2d_dpos_cuda(cot, img, px, py), 200)
+        plain = time_ms(lambda: sample2d_dpos_reference(cot, img, px, py), 3,
                         head_start_ms=100.0)
         lib = time_ms(lambda: backward(cot_img, img, grid, 0, 0, False, [False, True]), 200)
         rows.append(kernel_row(
-            f"warp2d_taps_pwc_l{lvl}", "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:197",
-            "warp2d_taps", "pwc_train", errs[lvl]["warp2d_taps"], ms, plain,
-            warp_taps_work(img, p), torch.float32, lib))
+            f"warp2d_dpos_pwc_l{lvl}", "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:197",
+            "warp2d_dpos", "pwc_train", errs[lvl][torch.float32]["warp2d_dpos"], ms, plain,
+            warp_dpos_work(img, p), torch.float32, lib))
         ms = time_ms(lambda: sample2d_dimg_cuda(cot, px, py, shape), 200)
         plain = time_ms(lambda: sample2d_dimg_reference(cot, px, py, shape), 5,
                         head_start_ms=100.0)
         lib = time_ms(lambda: backward(cot_img, img, grid, 0, 0, False, [True, False]), 200)
         rows.append(kernel_row(
             f"warp2d_dimg_pwc_l{lvl}", "warp2d_grad.cu", "tpureg/ops/warp_pallas.py:230",
-            "warp2d_dimg", "pwc_train", errs[lvl]["warp2d_dimg"], ms, plain,
+            "warp2d_dimg", "pwc_train", errs[lvl][torch.float32]["warp2d_dimg"], ms, plain,
             warp_dimg_work(shape, p, torch.float32), torch.float32, lib))
+        node_timings(f"PWC level {lvl}", img, px, py, cot, grid, False)
 
         def ours():
-            # the train step's feature warp: K4 forward, then its backward
-            _, bx, by = sample2d_taps_cuda(img, px, py)
-            (cot * bx).sum(1)
-            (cot * by).sum(1)
+            # the train step's feature warp: K3 forward, then K4 and K5
+            sample2d_cuda(img, px, py)
+            sample2d_dpos_cuda(cot, img, px, py)
             return sample2d_dimg_cuda(cot, px, py, shape)
 
         def library():
@@ -2107,13 +2165,13 @@ def pwc_timings(errs):
                           align_corners=False)
             return backward(cot_img, img, grid, 0, 0, False, [True, True])
 
-        # 7 launches a call: a longer head start and fewer calls, so that
+        # 4 launches a call: a longer head start and fewer calls, so that
         # the host queues them all before the card reaches the start
         both = lambda fn: time_ms(fn, 50, head_start_ms=100.0)
         t_ours, t_lib = both(ours), both(library)
         t_ours2, t_lib2 = both(ours), both(library)
-        print(f"  PWC level {lvl} {shape}, sample and both cotangents: K4 + 2 "
-              f"reductions + K5 {t_ours * 1e3:.2f} / {t_ours2 * 1e3:.2f} us; grid_sample "
+        print(f"  PWC level {lvl} {shape}, sample and both cotangents: K3 + K4 + K5 "
+              f"{t_ours * 1e3:.2f} / {t_ours2 * 1e3:.2f} us; grid_sample "
               f"+ grid_sampler_2d_backward {t_lib * 1e3:.2f} / {t_lib2 * 1e3:.2f} us "
               f"(two turns); the {'kernels' if t_ours + t_ours2 < t_lib + t_lib2 else 'library'} "
               f"faster")
@@ -2157,7 +2215,8 @@ def composition_positions(field):
 
 def syn_timings(flow, flow3d):
     """K3, K4 and K5 at the 2-D comparator's last composition, at the 64²
-    level (K4, K5) and in the final exponential at 256² (K3), and K6a, K6b
+    level (K4, K5 and the node K3 + K4) and in the final exponential at 256²
+    (K3), and K6a, K6b
     and K6c at the 3-D comparator's last full-resolution composition, each
     with its plain version and the library call that computes its function
     (fp32). The fields are the registrations' own: a velocity is taken as
@@ -2175,28 +2234,26 @@ def syn_timings(flow, flow3d):
                        -1).reshape(shape[0], shape[2], shape[3], 2)
     cot = torch.randn((shape[0], shape[1], p), device=DEV,
                       generator=torch.Generator(device=DEV).manual_seed(50))
-    out, dpx, dpy = sample2d_taps_cuda(f64, px, py)
-    want, wpx, wpy = sample2d_taps_reference(f64, px, py)
-    torch.cuda.synchronize()
-    taps_err = max(float((dpx - wpx).abs().max()), float((dpy - wpy).abs().max()))
-    require(bool(torch.equal(out, want)) and all(
-        bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all()) for a, b in ((dpx, wpx), (dpy, wpy))),
-        "K4 disagrees with its plain version at SyN's composition")
-    print(f"  K4 at SyN's composition {shape}, |displacement| max "
-          f"{float(f64.abs().max()):.3g} px: sample equal to the plain one, bases "
-          f"max |kernel - plain| = {taps_err:.3g} (tolerance 1e-6 abs + 1e-5 rel)")
+    print(f"  SyN's composition {shape}, |displacement| max {float(f64.abs().max()):.3g} px:")
+    require(bool(torch.equal(sample2d_cuda(f64, px, py), sample2d_gather(f64, px, py))),
+            "K3 disagrees with its plain version at SyN's composition")
+    dpos_err = check_dpos(f"at SyN's composition {shape}", f64, px, py, seed=50)
+    check_dpos(f"at SyN's composition {shape}", f64.bfloat16(), px, py, seed=50)
     _, dgrid = torch.ops.aten.grid_sampler_2d_backward(
         cot.reshape(shape), f64, grid, 0, 0, True, [False, True])
-    dx = (cot * dpx).sum(1).reshape(shape[0], shape[2], shape[3]) * ((shape[3] - 1) / 2)
-    print(f"  grid_sampler_2d_backward d/dgrid agrees with Σ_c g·K4 to "
+    dx = sample2d_dpos_cuda(cot, f64, px, py)[0].reshape(
+        shape[0], shape[2], shape[3]) * ((shape[3] - 1) / 2)
+    print(f"  grid_sampler_2d_backward d/dgrid agrees with K4 to "
           f"{float((dgrid[..., 0] - dx).abs().max()):.3g} (of {float(dx.abs().max()):.3g})")
-    ms = time_ms(lambda: sample2d_taps_cuda(f64, px, py), 200)
-    plain = time_ms(lambda: sample2d_taps_reference(f64, px, py), 10, head_start_ms=100.0)
+    ms = time_ms(lambda: sample2d_dpos_cuda(cot, f64, px, py), 200)
+    plain = time_ms(lambda: sample2d_dpos_reference(cot, f64, px, py), 10,
+                    head_start_ms=100.0)
     lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
         cot.reshape(shape), f64, grid, 0, 0, True, [False, True]), 200)
-    rows.append(kernel_row("warp2d_taps_syn", "warp2d_grad.cu",
-                           "tpureg/ops/warp_pallas.py:197", "warp2d_taps", "syn",
-                           taps_err, ms, plain, warp_taps_work(f64, p), torch.float32, lib))
+    rows.append(kernel_row("warp2d_dpos_syn", "warp2d_grad.cu",
+                           "tpureg/ops/warp_pallas.py:197", "warp2d_dpos", "syn",
+                           dpos_err, ms, plain, warp_dpos_work(f64, p), torch.float32, lib))
+    node_timings("SyN's composition", f64, px, py, cot, grid, True)
     dimg_err = check_dimg(f"SyN's composition {shape}", shape, px, py, torch.float32)
     dimg_lib, _ = torch.ops.aten.grid_sampler_2d_backward(
         cot.reshape(shape), f64, grid, 0, 0, True, [True, False])
@@ -2303,7 +2360,7 @@ def _kernel_group(name):
     groups = (("corr_fwd_kernel", "K1 correlation"),
               ("corr_bwd_kernel", "K2 correlation backward"),
               ("warp2d_fwd_kernel", "K3 warp"),
-              ("warp2d_taps_kernel", "K4 warp with bases"),
+              ("warp2d_dpos_kernel", "K4 warp positions' cotangent"),
               ("warp2d_dimg_kernel", "K5 warp image cotangent"),
               ("warp3d_fwd_kernel", "K6a 3-D warp"),
               ("warp3d_dpos_kernel", "K6b 3-D warp positions' cotangent"),

@@ -1,6 +1,8 @@
 """The functions of kernels K2, K4 and K5 (the correlation's and the warp's
 gradients) in tpureg_torch against tpureg's on the CPU, and the BatchNorm
-running statistics against flax's.
+running statistics against flax's. K4 is the warp's positions' cotangent
+``Σ_c g·∂out/∂p`` (``sample2d_dpos_reference``), the contraction of tpureg's
+bases (``_fwd_taps_kernel``) with the cotangent.
 
 On the CPU the port's gradients are autograd of its plain versions
 (``correlation_reference``, ``sample2d_gather``), the very functions the card
@@ -29,6 +31,7 @@ from tpureg_torch.ops import (
     correlation_bwd_reference,
     sample2d,
     sample2d_dimg_reference,
+    sample2d_dpos_reference,
     sample2d_gather,
     sample2d_nearest,
     sample2d_taps_reference,
@@ -233,6 +236,76 @@ def test_warp_plain_versions_are_the_cpu_route():
     np.testing.assert_allclose((gt * by).sum(1).numpy(), dpy, atol=1e-6, rtol=1e-6)
     np.testing.assert_array_equal(
         _nhwc(sample2d_dimg_reference(gt, x, y, (2, 3, H, W))), dimg)
+
+
+def _dpos_args(img, px, py, g):
+    """numpy NHWC image, [B, P] positions and [B, P, C] cotangent as
+    ``sample2d_dpos_reference``'s arguments (grad [B,C,P], NCHW image)."""
+    gt = torch.from_numpy(np.ascontiguousarray(np.transpose(g, (0, 2, 1))))
+    return gt, _nchw(img), torch.from_numpy(px), torch.from_numpy(py)
+
+
+def _jax_dpos(img, px, py, g):
+    """``jax.vjp`` of tpureg's ``sample2d_gather`` to px and py."""
+    _, vjp = jax.vjp(lambda a, b: jax_sample(jnp.asarray(img), a[:, None], b[:, None]),
+                     jnp.asarray(px), jnp.asarray(py))
+    return [np.asarray(t) for t in vjp(jnp.asarray(g)[:, None])]
+
+
+@pytest.mark.parametrize("c", [1, 2, 32])   # FlowNet2's images, SyN's fields, PWC
+def test_dpos_reference_matches_jax_vjp(c):
+    """K4's function against tpureg's VJP to the positions, with positions
+    past every side of the image (out-of-image taps included)."""
+    img, px, py, g = _warp_inputs(20, b=2, c=c)
+    assert px.min() < 0 and px.max() > W and py.min() < 0 and py.max() > H
+    got = sample2d_dpos_reference(*_dpos_args(img, px, py, g))
+    # C products of O(1) bases and unit cotangents each, summed in another
+    # order: fp32 roundings of sums of order sqrt(C)
+    for k, want in zip(got, _jax_dpos(img, px, py, g)):
+        assert k.dtype == torch.float32 and k.shape == px.shape
+        np.testing.assert_allclose(k.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_dpos_reference_matches_pallas_interpret(monkeypatch):
+    """At C = 1, against tpureg's warp2d_pallas VJP (its taps kernel's bases
+    times the cotangent) under the Pallas interpreter. Its forward rounds
+    the image through a bf16 hi/lo split (2^-16 of a value): differences of
+    up to 2.4e-5 here, within 1e-5 abs + 1e-5 rel of these O(1) values."""
+    monkeypatch.setattr(wp, "_INTERPRET", True)
+    img, px, py, g = _warp_inputs(21)
+    _, vjp = jax.vjp(lambda a, b: wp.warp2d_pallas(jnp.asarray(img[..., 0]), a, b),
+                     jnp.asarray(px), jnp.asarray(py))
+    want = vjp(jnp.asarray(g[..., 0]))
+    got = sample2d_dpos_reference(*_dpos_args(img, px, py, g))
+    for k, w in zip(got, want):
+        np.testing.assert_allclose(k.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("c", [1, 32])
+def test_dpos_reference_reads_bf16_taps_in_fp32(c):
+    """A bf16 image: its taps are read in fp32, so the cotangent is the fp32
+    image's with the same (bf16-rounded) values, bit for bit, and agrees
+    with tpureg's VJP on those values."""
+    img, px, py, g = _warp_inputs(22, b=2, c=c)
+    gt, im, x, y = _dpos_args(img, px, py, g)
+    got = sample2d_dpos_reference(gt, im.bfloat16(), x, y)
+    rounded = im.bfloat16().float()
+    for k, r in zip(got, sample2d_dpos_reference(gt, rounded, x, y)):
+        assert k.dtype == torch.float32
+        torch.testing.assert_close(k, r, atol=0, rtol=0)
+    for k, want in zip(got, _jax_dpos(_nhwc(rounded), px, py, g)):
+        np.testing.assert_allclose(k.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("c", [1, 3, 32])
+def test_dpos_reference_is_the_cpu_route(c):
+    """The port's CPU ``sample2d`` route (autograd through the gather) gives
+    the positions the same cotangent as K4's plain version."""
+    img, px, py, g = _warp_inputs(23, b=2, c=c)
+    _, dpx, dpy = _port_warp_grads(img, px, py, g)
+    got = sample2d_dpos_reference(*_dpos_args(img, px, py, g))
+    for k, want in zip(got, (dpx, dpy)):
+        np.testing.assert_allclose(k.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 def test_sample2d_nearest_matches_tpureg():

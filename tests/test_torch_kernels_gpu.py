@@ -20,8 +20,9 @@ from tpureg_torch.ops import (
     sample2d_cuda,
     sample2d_dimg_cuda,
     sample2d_dimg_reference,
+    sample2d_dpos_cuda,
+    sample2d_dpos_reference,
     sample2d_gather,
-    sample2d_taps_cuda,
     sample2d_taps_reference,
     sample3d,
     sample3d_cuda,
@@ -34,6 +35,7 @@ from tpureg_torch.ops import (
 )
 from tpureg_torch.classical import exp_velocity3d
 from tpureg_torch.classical.syn import _compose
+from tpureg_torch.ops import warp as warp_ops
 from tpureg_torch.ops.warp import _Sample3dKernel, warp2d
 
 pytestmark = pytest.mark.gpu
@@ -242,11 +244,13 @@ def test_warp_k3_equals_plain_and_k4_at_any_alignment(dev, dtype, shape, scale, 
         assert px.storage_offset() == 1 and px.is_contiguous()
     got = sample2d_cuda(img, px, py)
     want = sample2d_gather(img.float(), px, py).reshape(b, c, -1)
-    k4 = sample2d_taps_cuda(img, px, py)[0]
+    grad = torch.randn((b, c, px.shape[1]), device=dev, generator=g)
+    dpos = sample2d_dpos_cuda(grad, img, px, py)
     torch.cuda.synchronize()
     # the same roundings in the same order whatever the load path
     torch.testing.assert_close(got, want, atol=0, rtol=0)
-    torch.testing.assert_close(got, k4, atol=0, rtol=0)
+    # K4 reads the same positions (rows of any alignment) one at a time
+    _assert_dpos_close(dpos, grad, img, px, py)
 
 
 def test_warp_non_finite_positions_give_zero(dev):
@@ -255,6 +259,12 @@ def test_warp_non_finite_positions_give_zero(dev):
     py = torch.tensor([[0.0, 0.0, 0.0, 1e30]], device=dev)
     out = sample2d_cuda(img, px, py)
     assert torch.equal(out, torch.zeros_like(out))
+    # K4: a position with no tap in the image gets 0, NaN fractions too
+    for dtype in (torch.float32, torch.bfloat16):
+        dpos = sample2d_dpos_cuda(torch.ones((1, 3, 4), device=dev),
+                                  img.expand(1, 3, 4, 4).contiguous().to(dtype), px, py)
+        for t in dpos:
+            assert torch.equal(t, torch.zeros_like(t))
 
 
 def test_warp_dispatch_launches_kernel_and_casts(dev):
@@ -269,30 +279,53 @@ def test_warp_dispatch_launches_kernel_and_casts(dev):
 
 
 # ---------------------------------------------------------------------------
-# K4: warp forward with position-derivative bases; K5: the image cotangent
+# K4: the positions' cotangent Σ_c g·∂out/∂p; K5: the image cotangent
 
 WARP_GRAD_CASES = [((8, 1, 256, 256), 60.0), ((8, 1, 256, 256), 0.7),
                    ((2, 3, 37, 53), 20.0)]
 
 
+def _assert_dpos_close(dpos, grad, img, px, py):
+    """K4 against its plain version. Each channel's basis is the same
+    differences of tap values, associated otherwise than autograd's chain
+    (and contracted to fused multiply-adds): a few fp32 roundings, within
+    1e-6 abs + 1e-5 rel of the basis; the contraction weights channel c's by
+    |g_c|. So |K4 - plain| <= Σ_c |g_c| (1e-6 + 1e-5 |basis_c|) at each
+    position (the fp32 contraction's own roundings sit inside 1e-5 rel)."""
+    want = sample2d_dpos_reference(grad, img, px, py)
+    _, *bases = sample2d_taps_reference(img, px, py)
+    torch.cuda.synchronize()
+    for k, r, base in zip(dpos, want, bases):
+        assert k.dtype == torch.float32 and k.shape == px.shape
+        tol = (grad.abs() * (1e-6 + 1e-5 * base.abs())).sum(1)
+        assert bool(((k - r).abs() <= tol).all()), float((k - r).abs().max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,scale", WARP_GRAD_CASES)
 def test_warp_taps_matches_k3_and_plain(dev, dtype, shape, scale):
+    """K4 (the positions' cotangent from the image's taps) against its plain
+    version at scattered (often out-of-image), smooth and C = 3 positions,
+    with far-away and non-finite positions mixed in; K3's sample at the
+    same positions is the plain one, to the last bit."""
     b, c, h, w = shape
     g = torch.Generator(device=dev).manual_seed(8)
     img = torch.rand(shape, device=dev, generator=g).to(dtype)
     px, py = _positions(dev, b, h, w, scale=scale, seed=9)
-    out, dpx, dpy = sample2d_taps_cuda(img, px, py)
-    # the sample is K3's, to the last bit
-    torch.testing.assert_close(out, sample2d_cuda(img, px, py), atol=0, rtol=0)
-    want, wpx, wpy = sample2d_taps_reference(img, px, py)
+    torch.testing.assert_close(sample2d_cuda(img, px, py),
+                               sample2d_gather(img.float(), px, py), atol=0, rtol=0)
+    grad = torch.randn((b, c, h * w), device=dev, generator=g)
+    dpos = sample2d_dpos_cuda(grad, img, px, py)
+    _assert_dpos_close(dpos, grad, img, px, py)
+    # far-away and non-finite positions give 0, the rest stays as it was
+    far = px.clone(), py.clone()
+    far[0][:, :4] = torch.tensor([1e30, -1e30, float("nan"), float("inf")], device=dev)
+    far[1][:, 4:6] = torch.tensor([float("-inf"), 1e30], device=dev)
+    fx, fy = sample2d_dpos_cuda(grad, img, *far)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, want, atol=0, rtol=0)
-    # the bases are the same differences of tap values, associated otherwise
-    # than autograd's chain (and contracted to fused multiply-adds): a few
-    # fp32 roundings of values of order 1
-    torch.testing.assert_close(dpx, wpx, atol=1e-6, rtol=1e-5)
-    torch.testing.assert_close(dpy, wpy, atol=1e-6, rtol=1e-5)
+    for t, k in ((fx, dpos[0]), (fy, dpos[1])):
+        assert torch.equal(t[:, :6], torch.zeros_like(t[:, :6]))
+        assert torch.equal(t[:, 6:], k[:, 6:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -379,12 +412,13 @@ def test_warp_autograd_runs_k4_and_k5(dev):
             ).requires_grad_()
     px = torch.arange(24, device=dev, dtype=torch.float32) + flow[:, 0]
     py = torch.arange(16, device=dev, dtype=torch.float32)[:, None] + flow[:, 1]
-    counts = (sample2d_cuda.launches, sample2d_taps_cuda.launches,
+    counts = (sample2d_cuda.launches, sample2d_dpos_cuda.launches,
               sample2d_dimg_cuda.launches)
     out = sample2d(img, px, py)
     (out.sin()).sum().backward()
-    assert (sample2d_cuda.launches, sample2d_taps_cuda.launches,
-            sample2d_dimg_cuda.launches) == (counts[0], counts[1] + 1,
+    # K3 forward; K4 and K5 backward
+    assert (sample2d_cuda.launches, sample2d_dpos_cuda.launches,
+            sample2d_dimg_cuda.launches) == (counts[0] + 1, counts[1] + 1,
                                              counts[2] + 1)
     img2 = img.detach().requires_grad_()
     flow2 = flow.detach().requires_grad_()
@@ -403,16 +437,16 @@ def test_warp_k4_and_k5_at_syn_compositions(dev, shape):
     g = torch.Generator(device=dev).manual_seed(27)
     field = torch.randn(shape, device=dev, generator=g) * 2.0
     px, py = _smooth_positions(dev, b, h, w, 2.0, seed=28)
-    out, dpx, dpy = sample2d_taps_cuda(field, px, py)
-    want, wpx, wpy = sample2d_taps_reference(field, px, py)
+    out = sample2d_cuda(field, px, py)
+    want = sample2d_gather(field, px, py)
     grad = torch.randn((b, c, h * w), device=dev, generator=g)
+    dpos = sample2d_dpos_cuda(grad, field, px, py)
     dimg = sample2d_dimg_cuda(grad, px, py, shape)
     dimg_want = sample2d_dimg_reference(grad, px, py, shape)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, atol=0, rtol=0)
     # the bases: a few fp32 roundings of differences of values of order 2
-    torch.testing.assert_close(dpx, wpx, atol=1e-6, rtol=1e-5)
-    torch.testing.assert_close(dpy, wpy, atol=1e-6, rtol=1e-5)
+    _assert_dpos_close(dpos, grad, field, px, py)
     # fp32 sums by atomics in an order that changes from run to run
     torch.testing.assert_close(dimg, dimg_want, atol=1e-5, rtol=1e-5)
 
@@ -422,9 +456,9 @@ def test_warp_k4_and_k5_at_syn_compositions(dev, shape):
                                    (8, 64, 32, 32), (8, 32, 64, 64)])
 def test_warp_kernels_at_pwc_feature_warps(dev, dtype, shape):
     """PWC's four feature warps at 256², batch 8, at the "pwc" positions of
-    a smooth flow, (flow + xy)·size/(size - 1) - 0.5: K3's and K4's sample
-    the plain one to the last bit, K4's bases and K5 as in the tests above
-    (W = 8 and 16 take K3's and K5's ragged paths)."""
+    a smooth flow, (flow + xy)·size/(size - 1) - 0.5: K3's sample the plain
+    one to the last bit, K4 and K5 as in the tests above (W = 8 and 16 take
+    K3's and K5's ragged paths; K4 splits C = 32-128 over 4-32 warps)."""
     b, c, h, w = shape
     flow = _smooth_flow(dev, b, h, w, 2.0, seed=30)
     px = (torch.arange(w, device=dev) + flow[:, 0]) * (w / (w - 1)) - 0.5
@@ -432,17 +466,15 @@ def test_warp_kernels_at_pwc_feature_warps(dev, dtype, shape):
     px, py = px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
     g = torch.Generator(device=dev).manual_seed(31)
     img = torch.rand(shape, device=dev, generator=g).to(dtype)
-    out, dpx, dpy = sample2d_taps_cuda(img, px, py)
-    want, wpx, wpy = sample2d_taps_reference(img, px, py)
+    want = sample2d_gather(img.float(), px, py)
     k3 = sample2d_cuda(img, px, py)
     grad = torch.randn((b, c, h * w), device=dev, generator=g)
+    dpos = sample2d_dpos_cuda(grad, img, px, py)
     dimg = sample2d_dimg_cuda(grad, px, py, shape, dtype)
     dimg_want = sample2d_dimg_reference(grad, px, py, shape, dtype)
     torch.cuda.synchronize()
     torch.testing.assert_close(k3, want, atol=0, rtol=0)
-    torch.testing.assert_close(out, want, atol=0, rtol=0)
-    torch.testing.assert_close(dpx, wpx, atol=1e-6, rtol=1e-5)
-    torch.testing.assert_close(dpy, wpy, atol=1e-6, rtol=1e-5)
+    _assert_dpos_close(dpos, grad, img, px, py)
     if dtype == torch.float32:
         torch.testing.assert_close(dimg, dimg_want, atol=1e-5, rtol=1e-5)
     else:
@@ -452,15 +484,16 @@ def test_warp_kernels_at_pwc_feature_warps(dev, dtype, shape):
 @pytest.mark.parametrize("threshold", [0.9999, 0.999])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pwc_warp_samples_its_mask_on_k3(dev, dtype, threshold):
-    """The "pwc" warp through autograd on the card: the features' sample on
-    K4, its cotangents on K5 and the reductions, the mask's ones image on K3
-    (its positions detached), in the features' dtype; output, mask and both
-    cotangents agree with the CPU's plain path (masks equal)."""
+    """The "pwc" warp through autograd on the card: the features' sample and
+    the mask's ones image (its positions detached) on K3, in the features'
+    dtype; the features' cotangents on K4 (positions) and K5 (image); output,
+    mask and both cotangents agree with the CPU's plain path (masks
+    equal)."""
     g = torch.Generator(device=dev).manual_seed(32)
     img = torch.rand((2, 32, 16, 16), device=dev, generator=g).to(dtype)
     flow = _smooth_flow(dev, 2, 16, 16, 2.0, seed=33)
     cot = torch.randn((2, 32, 16, 16), device=dev, generator=g)
-    counts = lambda: (sample2d_cuda.launches, sample2d_taps_cuda.launches,
+    counts = lambda: (sample2d_cuda.launches, sample2d_dpos_cuda.launches,
                       sample2d_dimg_cuda.launches)
     before = counts()
     x, f = img.clone().requires_grad_(), flow.clone().requires_grad_()
@@ -468,7 +501,7 @@ def test_pwc_warp_samples_its_mask_on_k3(dev, dtype, threshold):
     assert mask.dtype == dtype and mask.grad_fn is None
     gx, gf = torch.autograd.grad(out, (x, f), cot.to(dtype))
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert counts() == (before[0] + 2, before[1] + 1, before[2] + 1)
     xc, fc = img.cpu().requires_grad_(), flow.cpu().requires_grad_()
     oc, mc = warp2d(xc, fc, "pwc", return_mask=True, mask_threshold=threshold)
     gxc, gfc = torch.autograd.grad(oc, (xc, fc), cot.cpu().to(dtype))
@@ -483,19 +516,19 @@ def test_pwc_warp_samples_its_mask_on_k3(dev, dtype, threshold):
 def test_syn_compose_autograd_runs_k4_and_k5_once(dev):
     """classical/syn.py's _compose(flow, flow), as scaling and squaring calls
     it: the sample's positions and the sampled field both come from the one
-    field, so one forward launches K4 and its backward K5; both cotangents
-    reach the field and agree with the plain path's."""
+    field, so one forward launches K3 and its backward K4 and K5; both
+    cotangents reach the field and agree with the plain path's."""
     g = torch.Generator(device=dev).manual_seed(29)
     coarse = torch.randn((1, 2, 8, 8), device=dev, generator=g) * 3.0
     flow = torch.nn.functional.interpolate(coarse, size=(64, 64), mode="bicubic",
                                            align_corners=True).requires_grad_()
     weights = torch.randn((1, 2, 64, 64), device=dev, generator=g)
-    counts = lambda: (sample2d_cuda.launches, sample2d_taps_cuda.launches,
+    counts = lambda: (sample2d_cuda.launches, sample2d_dpos_cuda.launches,
                       sample2d_dimg_cuda.launches)
     before = counts()
     out = _compose(flow, flow)
     (out * weights).sum().backward()
-    assert tuple(n - m for n, m in zip(counts(), before)) == (0, 1, 1)
+    assert tuple(n - m for n, m in zip(counts(), before)) == (1, 1, 1)
     flow_cpu = flow.detach().cpu().requires_grad_()
     want = _compose(flow_cpu, flow_cpu)
     (want * weights.cpu()).sum().backward()
@@ -503,6 +536,49 @@ def test_syn_compose_autograd_runs_k4_and_k5_once(dev):
     # the image cotangent's atomics and the bases' association: fp32
     # roundings of sums of order 1-10
     torch.testing.assert_close(flow.grad.cpu(), flow_cpu.grad, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 256, 256), (8, 128, 8, 8), (8, 32, 64, 64)])
+def test_warp_k4_repeats_bit_for_bit(dev, shape):
+    """K4 adds its channels' products in a fixed order (no atomics): two
+    launches give the same dpx and dpy, bit for bit, where one warp takes
+    every channel (C = 1) and where 4 or 32 warps split them."""
+    b, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(34)
+    img = torch.rand(shape, device=dev, generator=g)
+    px, py = _smooth_positions(dev, b, h, w, 2.0, seed=35)
+    grad = torch.randn((b, c, h * w), device=dev, generator=g)
+    first = [t.clone() for t in sample2d_dpos_cuda(grad, img, px, py)]
+    second = sample2d_dpos_cuda(grad, img, px, py)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("need_img", [False, True], ids=["positions", "both"])
+def test_warp_node_saves_no_per_channel_tensor(dev, need_img):
+    """What the 2-D node keeps for its backward: the image (K4 gathers its
+    taps again) and the positions, nothing [B, C, P]; counted in bytes by
+    ``saved_tensors_hooks``, at PWC's level-4 feature warp."""
+    b, c, h, w = 8, 96, 16, 16
+    g = torch.Generator(device=dev).manual_seed(36)
+    img = torch.rand((b, c, h, w), device=dev, generator=g).requires_grad_(need_img)
+    flow = (torch.randn((b, 2, h, w), device=dev, generator=g) * 2).requires_grad_()
+    px = torch.arange(w, device=dev, dtype=torch.float32) + flow[:, 0]
+    py = torch.arange(h, device=dev, dtype=torch.float32)[:, None] + flow[:, 1]
+    px, py = px.reshape(b, -1).contiguous(), py.reshape(b, -1).contiguous()
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = warp_ops._Sample2dKernel.apply(img, px, py)
+    # two fp32 bases [B, C, P] beside the positions would exceed this bound
+    assert 0 < sum(saved) <= img.numel() * img.element_size() + 2 * px.numel() * 4
+    out.sum().backward()
+    assert flow.grad is not None and bool(torch.isfinite(flow.grad).all())
 
 
 # ---------------------------------------------------------------------------

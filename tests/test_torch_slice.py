@@ -207,8 +207,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 # the port imports neither JAX nor tpureg
 
 # the root scripts that run on the card
-ROOT_SCRIPTS = ("chip_smoke.py", "ab_warp2d.py", "ab_warp3d_dvol.py", "ab_correlation.py",
-                "torch_quality_real.py", "torch_quality3d.py")
+ROOT_SCRIPTS = ("chip_smoke.py", "ab_warp2d.py", "ab_warp2d_dpos.py", "ab_warp3d_dvol.py",
+                "ab_correlation.py", "torch_quality_real.py", "torch_quality3d.py")
 
 
 def _port_sources():

@@ -1,13 +1,15 @@
 """The backward of tpureg_torch's trilinear sample on the CPU: K6b's plain
 version (the positions' cotangent) against tpureg's ``jax.vjp``, and the
-wiring of ``_Sample3dKernel``, the card's autograd node, with its kernel
-launchers replaced by their plain versions.
+wiring of ``_Sample3dKernel`` and ``_Sample2dKernel``, the card's autograd
+nodes, with their kernel launchers replaced by their plain versions.
 
 On the card, ``_Sample3dKernel`` runs K6a in the forward and, in the
 backward, K6b (``sample3d_dpos_cuda``) for the positions and K6c
 (``sample3d_dvol_cuda``) for the volume; it saves the volume (only when the
 positions need a gradient) and the positions, never a per-channel basis.
-Inputs come from numpy; the port is NCDHW, tpureg NDHWC.
+``_Sample2dKernel`` is its 2-D twin: K3 forward, K4 (``sample2d_dpos_cuda``)
+and K5 (``sample2d_dimg_cuda``) backward. Inputs come from numpy; the port
+is NCDHW, tpureg NDHWC.
 """
 
 import numpy as np
@@ -20,6 +22,9 @@ import jax.numpy as jnp
 from tpureg.ops.warp import sample3d_gather as jax_sample3d
 from tpureg_torch.ops import warp as warp_ops
 from tpureg_torch.ops import (
+    sample2d_dimg_reference,
+    sample2d_dpos_reference,
+    sample2d_gather,
     sample3d_dpos_reference,
     sample3d_dvol_reference,
     sample3d_gather,
@@ -122,3 +127,58 @@ def test_sample3d_kernel_wiring(plain_launchers, need_vol, need_pos):
         lambda *args: warp_ops._Sample3dKernel.apply(*args), [
             t.detach().requires_grad_(need)
             for t, need in zip([vol, *pos], [need_vol] + [need_pos] * 3)])
+
+
+@pytest.fixture
+def plain_launchers2d(monkeypatch):
+    """``_Sample2dKernel``'s three launchers replaced by their plain
+    versions, each call recorded by name."""
+    calls = []
+
+    def record(name, fn):
+        def call(*args):
+            calls.append(name)
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(warp_ops, "sample2d_cuda",
+                        record("K3", lambda img, px, py: sample2d_gather(img, px, py)))
+    monkeypatch.setattr(warp_ops, "sample2d_dpos_cuda",
+                        record("K4", sample2d_dpos_reference))
+    monkeypatch.setattr(warp_ops, "sample2d_dimg_cuda",
+                        record("K5", sample2d_dimg_reference))
+    return calls
+
+
+@pytest.mark.parametrize("need_img,need_pos", [(False, False), (False, True),
+                                               (True, False), (True, True)],
+                         ids=["none", "positions", "image", "both"])
+def test_sample2d_kernel_wiring(plain_launchers2d, need_img, need_pos):
+    b, c, h, w, p = 2, 3, 5, 6, 7
+    rng = np.random.default_rng(43)
+    img = torch.from_numpy(rng.random((b, c, h, w))).requires_grad_(need_img)
+    pos = [torch.from_numpy(rng.random((b, p)) * (n + 1) - 1.0) for n in (w, h)]
+    pos = [(torch.floor(t) + 0.05 + 0.9 * (t - torch.floor(t))).requires_grad_(need_pos)
+           for t in pos]
+    out = warp_ops._Sample2dKernel.apply(img, *pos)
+    torch.testing.assert_close(out, sample2d_gather(img, *pos), atol=0, rtol=0)
+    # every forward is K3, whatever needs a gradient
+    assert plain_launchers2d == ["K3"]
+    if not (need_img or need_pos):
+        assert out.grad_fn is None
+        return
+    # what the node keeps for its backward: the positions, and the image
+    # only where K4 needs it; no [B, C, P] basis
+    saved = out.grad_fn.saved_tensors
+    assert [None if t is None else tuple(t.shape) for t in saved] == \
+        [tuple(img.shape) if need_pos else None] + [(b, p)] * 2
+    out.backward(torch.from_numpy(rng.standard_normal(out.shape)))
+    assert plain_launchers2d == ["K3"] + ["K5"] * need_img + ["K4"] * need_pos
+    inputs = [t for t, need in zip([img, *pos], [need_img] + [need_pos] * 2) if need]
+    assert all(t.grad is not None for t in inputs)
+    # the analytic gradient (the kernels take an fp32 cotangent, and K4's
+    # plain version forms fp32 bases) against fp64 central differences
+    assert torch.autograd.gradcheck(
+        lambda *args: warp_ops._Sample2dKernel.apply(*args), [
+            t.detach().requires_grad_(need)
+            for t, need in zip([img, *pos], [need_img] + [need_pos] * 2)])

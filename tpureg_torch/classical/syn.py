@@ -12,8 +12,9 @@ Adam:
 
 NCHW; displacements are [B, 2, H, W] in pixels, channels (x, y). On the
 card every composition and warp runs the hand-written bilinear kernels:
-K4 samples where the positions need a gradient and K5 takes the sampled
-field's cotangent; the final exponential and warp, which need none, run K3.
+K3 samples, and in the backward K4 takes the positions' cotangent and K5
+the sampled field's; the final exponential and warp, which need none, run
+K3 alone.
 The blurs are two fp32 matrix products (no TF32).
 """
 

@@ -135,9 +135,9 @@ def load() -> ctypes.CDLL:
             lib.tpureg_correlation_bwd.argtypes = [
                 vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
             lib.tpureg_correlation_bwd.restype = i32
-            lib.tpureg_warp2d_taps.argtypes = [
+            lib.tpureg_warp2d_dpos.argtypes = [
                 vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64, vp]
-            lib.tpureg_warp2d_taps.restype = i32
+            lib.tpureg_warp2d_dpos.restype = i32
             lib.tpureg_warp2d_dimg.argtypes = [
                 vp, vp, vp, vp, i32, i32, i32, i32, i64, vp]
             lib.tpureg_warp2d_dimg.restype = i32

@@ -18,17 +18,17 @@ channel 1 the y displacement. Volumes are NCDHW; 3-D flows are
 and a CPU tensor to the plain gathers and autograd; there is no other route.
 On the card, in 2-D:
 
-- K3 (``csrc/warp2d.cu``) samples when the positions need no gradient;
-- K4 (``csrc/warp2d_grad.cu``) samples when they do, and returns beside the
-  sample the bases ∂out/∂px and ∂out/∂py, so that the backward to the
-  positions is ``Σ_c g · base`` (tpureg's ``warp_pallas.py:451-453``);
+- K3 (``csrc/warp2d.cu``) samples in every forward;
+- K4 (``csrc/warp2d_grad.cu``) is the positions' cotangent
+  ``Σ_c g · ∂out/∂p`` (tpureg's ``warp_pallas.py:451-453`` product of its
+  bases with the cotangent), run in the backward when it reaches the node:
+  it gathers the taps again, so no per-channel basis is written or saved;
 - K5 (same file) scatters the cotangent into the image when the image needs
   a gradient.
 
-In 3-D (``csrc/warp3d.cu``) the parts are split otherwise: K6a samples in
-every forward, K6b is the positions' cotangent ``Σ_c g · ∂out/∂p`` (it
-gathers the corners again, so no per-channel basis is written or saved),
-and K6c scatters the cotangent into the volume. tpureg sends only
+In 3-D (``csrc/warp3d.cu``) the parts are the same: K6a samples in every
+forward, K6b is the positions' cotangent and K6c scatters the cotangent
+into the volume. tpureg sends only
 single-channel volumes to its Pallas kernel (warp.py:191) and the rest to an
 XLA gather; here a CUDA volume of any C goes to the kernels, so that the
 scaling-and-squaring compositions, which warp a 3-channel field and
@@ -44,9 +44,9 @@ import torch
 from .cuda_lib import DTYPE_CODES, check, load, stream_handle
 
 __all__ = ["base_grid", "sample2d", "sample2d_gather", "sample2d_cuda",
-           "sample2d_taps_cuda", "sample2d_dimg_cuda", "sample2d_taps_reference",
-           "sample2d_dimg_reference", "sample2d_nearest", "warp2d",
-           "sample3d", "sample3d_gather", "sample3d_cuda", "sample3d_dpos_cuda",
+           "sample2d_dpos_cuda", "sample2d_dimg_cuda", "sample2d_taps_reference",
+           "sample2d_dpos_reference", "sample2d_dimg_reference", "sample2d_nearest",
+           "warp2d", "sample3d", "sample3d_gather", "sample3d_cuda", "sample3d_dpos_cuda",
            "sample3d_dvol_cuda", "sample3d_taps_reference",
            "sample3d_dpos_reference", "sample3d_dvol_reference", "voxel_grid",
            "warp3d"]
@@ -98,9 +98,9 @@ def sample2d_gather(img, px, py):
 
 
 def sample2d_taps_reference(img, px, py):
-    """K4's plain version: the fp32 sample of ``img`` [B,C,H,W] at
-    ``px``/``py`` [B,P] and its derivatives ∂out/∂px, ∂out/∂py [B,C,P], by
-    autograd through ``sample2d_gather``, one channel at a time."""
+    """The fp32 sample of ``img`` [B,C,H,W] at ``px``/``py`` [B,P] and its
+    derivatives ∂out/∂px, ∂out/∂py [B,C,P] (tpureg's ``_fwd_taps_kernel``),
+    by autograd through ``sample2d_gather``, one channel at a time."""
     with torch.enable_grad():
         x = px.detach().requires_grad_()
         y = py.detach().requires_grad_()
@@ -109,6 +109,14 @@ def sample2d_taps_reference(img, px, py):
                  for c in range(out.shape[1])]
     return (out.detach(), torch.stack([d[0] for d in bases], 1),
             torch.stack([d[1] for d in bases], 1))
+
+
+def sample2d_dpos_reference(grad, img, px, py):
+    """K4's plain version: the positions' cotangent ``Σ_c g_c · ∂out_c/∂p``
+    for p = px, py [B,P], from the sample's cotangent ``grad`` [B,C,P] and
+    the bases of ``sample2d_taps_reference``; fp32."""
+    _, *bases = sample2d_taps_reference(img, px, py)
+    return tuple((grad * base).sum(1) for base in bases)
 
 
 def sample2d_dimg_reference(grad, px, py, image_shape, dtype=torch.float32):
@@ -181,31 +189,36 @@ def sample2d_cuda(img, px, py):
 sample2d_cuda.launches = 0
 
 
-def sample2d_taps_cuda(img, px, py):
-    """Launch K4: K3's sample of ``img`` [B,C,H,W] at ``px``/``py`` [B,P],
-    and beside it ∂out/∂px and ∂out/∂py. Returns three [B, C, P] fp32
-    tensors; the sample equals K3's bit for bit.
+def sample2d_dpos_cuda(grad, img, px, py):
+    """Launch K4: the positions' cotangent ``Σ_c g_c · ∂out_c/∂p`` from the
+    sample's cotangent ``grad`` [B,C,P] (fp32) of ``img`` [B,C,H,W] (fp32 or
+    bf16) at ``px``/``py`` [B,P] (fp32), all contiguous on one card. Returns
+    two [B, P] fp32 tensors. The channels' products are added in a fixed
+    order (no atomics), so a launch repeats its result bit for bit.
 
-    ``sample2d_taps_cuda.launches`` counts the launches.
+    ``sample2d_dpos_cuda.launches`` counts the launches.
     """
-    _check_source("sample2d_taps_cuda", img, "BCHW")
-    _check_positions("sample2d_taps_cuda", img, px, py)
+    _check_source("sample2d_dpos_cuda", img, "BCHW")
+    _check_positions("sample2d_dpos_cuda", img, px, py)
     b, c, h, w = img.shape
     p = px.shape[1]
-    out, dpx, dpy = torch.empty((3, b, c, p), dtype=torch.float32,
-                                device=img.device).unbind(0)
+    _check_cotangent("sample2d_dpos_cuda", grad, (b, c, p), img.device)
+    if h * w >= 2**31 or p >= 2**31 - 32:
+        raise ValueError(f"sample2d_dpos_cuda takes planes of fewer than 2^31 pixels "
+                         f"and positions, got {h} x {w} and {p}")
+    dpx, dpy = torch.empty((2, b, p), dtype=torch.float32, device=img.device).unbind(0)
     lib = load()
     with torch.cuda.device(img.device):
-        code = lib.tpureg_warp2d_taps(
-            img.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(),
-            dpx.data_ptr(), dpy.data_ptr(), DTYPE_CODES[img.dtype], b, c, h, w,
-            p, stream_handle(img))
-    check(code, "warp-with-taps kernel (K4)")
-    sample2d_taps_cuda.launches += 1
-    return out, dpx, dpy
+        code = lib.tpureg_warp2d_dpos(
+            img.data_ptr(), px.data_ptr(), py.data_ptr(), grad.data_ptr(),
+            dpx.data_ptr(), dpy.data_ptr(), DTYPE_CODES[img.dtype], b, c, h, w, p,
+            stream_handle(img))
+    check(code, "warp position-cotangent kernel (K4)")
+    sample2d_dpos_cuda.launches += 1
+    return dpx, dpy
 
 
-sample2d_taps_cuda.launches = 0
+sample2d_dpos_cuda.launches = 0
 
 
 def sample2d_dimg_cuda(grad, px, py, image_shape, dtype=torch.float32):
@@ -235,32 +248,28 @@ sample2d_dimg_cuda.launches = 0
 
 
 class _Sample2dKernel(torch.autograd.Function):
-    """The card's bilinear sample as an autograd node: K3 when the positions
-    need no gradient, else K4, whose bases the backward multiplies by the
-    cotangent; K5 for the image's cotangent."""
+    """The card's bilinear sample as an autograd node: K3 in the forward;
+    in the backward K4 for the positions' cotangent (from the image, saved
+    only when the positions need a gradient) and K5 for the image's."""
 
     @staticmethod
     def forward(ctx, img, px, py):
         ctx.image = (tuple(img.shape), img.dtype)
-        if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
-            ctx.save_for_backward(px, py, None, None)
-            return sample2d_cuda(img, px, py)
-        out, dpx, dpy = sample2d_taps_cuda(img, px, py)
-        ctx.save_for_backward(px, py, dpx, dpy)
-        return out
+        ctx.save_for_backward(img if any(ctx.needs_input_grad[1:]) else None, px, py)
+        return sample2d_cuda(img, px, py)
 
     @staticmethod
     def backward(ctx, grad):
-        px, py, dpx_base, dpy_base = ctx.saved_tensors
+        img, px, py = ctx.saved_tensors
         grad = grad.float().contiguous()
-        dimg = dpx = dpy = None
+        dimg = None
         if ctx.needs_input_grad[0]:
             dimg = sample2d_dimg_cuda(grad, px, py, *ctx.image)
-        if ctx.needs_input_grad[1]:
-            dpx = (grad * dpx_base).sum(1)
-        if ctx.needs_input_grad[2]:
-            dpy = (grad * dpy_base).sum(1)
-        return dimg, dpx, dpy
+        dpos = (None, None)
+        if any(ctx.needs_input_grad[1:]):
+            dpos = sample2d_dpos_cuda(grad, img, px, py)
+        return (dimg, *(d if need else None
+                        for d, need in zip(dpos, ctx.needs_input_grad[1:])))
 
 
 def sample2d(img, px, py):
@@ -268,7 +277,8 @@ def sample2d(img, px, py):
 
     ``px``/``py`` are [B, H_out, W_out]; returns [B, C, H_out, W_out] in
     ``img``'s dtype, with each out-of-image tap contributing zero. Kernels
-    K3, K4 and K5 on CUDA, the plain gather and autograd on CPU.
+    K3 (forward), K4 and K5 (backward) on CUDA, the plain gather and
+    autograd on CPU.
     """
     if img.is_cuda:
         b, c = img.shape[:2]
