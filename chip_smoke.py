@@ -25,6 +25,10 @@
    (128, 8), (96, 16), (64, 32), (32, 64)), at the "pwc" positions of a
    smooth flow, fp32 and bf16, and the warp's validity mask (K3 on a
    1-channel ones image) at both thresholds, equal to the CPU's;
+4e. K3, K4 and K5 at 65,536 and 65,537 batch rows (one-channel 4 x 4 maps
+   at RAFT's 81 lookup positions), more than one launch's grid holds, and
+   K6a-c at 65,536 2 x 2 x 2 volumes, fp32 and bf16, against their plain
+   versions; K3's last rows also equal to a launch of them alone;
 5. the eval path: a seeded, full-width FlowNet2 registration head runs the
    eval step at 256², batch 8, with segmentations, in fp32 and bf16; the
    launch counters must show 1 K1 and 7 K3 launches per step; batch 1 is
@@ -73,6 +77,18 @@
    training CLI trains pwc-reg on phase 8's volumes, resumes and saves best
    weights, which the inference CLI loads in ``--mode real`` (phase 6's
    volumes) and ``--mode synthetic``;
+8i. RAFT: a seeded raft-reg head (1/4 resolution, the warped moving
+   features fed to the motion encoder; 1,760,610 parameters) runs the eval
+   step (with segmentations) and the train step at 256², batch 8, in fp32
+   and bf16: 32 K3 launches an eval step (20 lookups, 5 feature warps, the
+   head's 5 image warps, the segmentation and the grid); 31 K3, 25 K4 and
+   25 K5 a train step; the loss falls over 5 steps; at batch 1 the eval
+   flows and losses and the fp32 gradient are held against the CPU's plain
+   path, and so is raft's (1/8) eval; raft's eval and train steps at batch
+   8 launch 27 K3, and 26 K3, 21 K4 and 20 K5; the training CLI trains
+   raft-reg on phase 8's volumes, resumes and saves best weights under
+   RAFT, which the inference CLI loads in ``--mode real`` and ``--mode
+   synthetic``;
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 (d/dgrid) and K5 (d/dinput),
@@ -87,12 +103,15 @@
    against ``grid_sample`` and ``grid_sampler_2d_backward``; K3 on PWC's
    mask; the 2-D node's forward and positions' backward, K3 + K4, against
    ``grid_sample`` + d/dgrid at six shapes: PWC's four feature warps,
-   FlowNet2's stn positions and SyN's composition),
-   the eval and train steps of FlowNet2 and pwc-reg at batch 8 and the 3-D
+   FlowNet2's stn positions and SyN's composition; K3, K4 and K5 at
+   raft-reg's lookups (levels 0 and 3 at batch 8, level 0 at batch 16) and
+   its feature warp, fp32 and bf16),
+   the eval and train steps of FlowNet2, pwc-reg and raft-reg at batch 8 and the 3-D
    train steps at batch 2, whole 2-D and 3-D registrations, peak memory;
 10. a torch.profiler breakdown of one eval, one train and one step of each
-    3-D stage, of pwc-reg's eval and train steps, and of one 2-D and one 3-D
-    registration, by kernel group, with the device's idle share.
+    3-D stage, of pwc-reg's and raft-reg's eval and train steps, and of one
+    2-D and one 3-D registration, by kernel group, with the device's idle
+    share.
 
 The line before the last is the kernel table as JSON, the one before it the
 card; the last line is ``{"ok": true, "device": {...}}``. Any failed phase
@@ -226,6 +245,24 @@ PWC_EVAL_LAUNCHES = launches_of(correlation=5, warp2d=17)
 # are inputs
 PWC_TRAIN_LAUNCHES = launches_of(correlation=5, correlation_bwd=5, warp2d=16,
                                  warp2d_dpos=6, warp2d_dimg=4)
+# raft-reg's eval step (5 iterations at 1/4 resolution, with segs): K3 for
+# each iteration's lookups at the 4 pyramid levels (20) and its feature
+# warp (5), the head's 5 image warps (one a flow), the segmentation and the
+# grid
+RAFT_REG_EVAL_LAUNCHES = launches_of(warp2d=32)
+# raft-reg's train step: K3 for every sample but the segmentation's (31);
+# K4 where the backward reaches positions that need a gradient: the 16
+# lookups and 4 feature warps of iterations 2-5 (the first iteration's flow
+# is a constant zero) and the head's 5 image warps, which the loss reads
+# (25; the grid is not in the loss); K5 for the 20 lookups' correlation
+# maps and the 5 warped moving features (25); the moving image and the
+# grid are inputs
+RAFT_REG_TRAIN_LAUNCHES = launches_of(warp2d=31, warp2d_dpos=25, warp2d_dimg=25)
+# raft (1/8 resolution, no feature warps): 20 lookups, 5 head warps, the
+# segmentation (eval only) and the grid; K4 for iterations 2-5's 16
+# lookups and the 5 head warps; K5 for the 20 lookups
+RAFT_EVAL_LAUNCHES = launches_of(warp2d=27)
+RAFT_TRAIN_LAUNCHES = launches_of(warp2d=26, warp2d_dpos=21, warp2d_dimg=20)
 # register_syn3d, (30, 20, 10): each of the 60 iterations runs 6
 # compositions (K6a; K6b and K6c backward) and the moving volume's warp
 # (K6a; K6b); the final exponential and warp run K6a only (6 + 1)
@@ -744,6 +781,51 @@ WARP3D_CASES = (("final warp", (VOL_BATCH, 1, *VOLUME_SIZE), 0.7, 0.0),
                 ("C1, dz +8.5", (1, 1, 32, 64, 64), 0.3, 8.5))
 
 
+def check_warp3d_case(label, vol, px, py, pz, dtype):
+    """K6a, K6b and K6c against their plain versions on ``vol`` at ``px``,
+    ``py``, ``pz`` [B, P], one line; returns their largest differences."""
+    shape = tuple(vol.shape)
+    got = sample3d_cuda(vol, px, py, pz)
+    want = sample3d_gather(vol.float(), px, py, pz)
+    torch.cuda.synchronize()
+    # K6a: the plain version's roundings, in its order
+    exact = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    del got, want
+    b, c = shape[:2]
+    grad = torch.randn((b, c, px.shape[1]), device=DEV,
+                       generator=torch.Generator(device=DEV).manual_seed(31))
+    dpos = sample3d_dpos_cuda(grad, vol, px, py, pz)
+    ref = sample3d_dpos_reference(grad, vol, px, py, pz)
+    torch.cuda.synchronize()
+    # K6b: the bases are the same products of corner values summed as
+    # tpureg's _gather_taps sums them, not as autograd's chain, and
+    # contracted with g in channel order; the volume's bf16 values are exact
+    # in fp32, so both dtypes take the same tolerance
+    pos_err = max(float((k - r).abs().max()) for k, r in zip(dpos, ref))
+    pos_ok = all(bool(((k - r).abs() <= 1e-6 + 1e-5 * r.abs()).all())
+                 for k, r in zip(dpos, ref))
+    del dpos, ref
+    dvol = sample3d_dvol_cuda(grad, px, py, pz, shape, dtype).float()
+    dref = sample3d_dvol_reference(grad, px, py, pz, shape, dtype).float()
+    torch.cuda.synchronize()
+    derr = float((dvol - dref).abs().max())
+    if dtype == torch.float32:
+        # the same products added by atomics in an order that changes from
+        # run to run
+        tol, dok = "1e-5 abs + 1e-5 rel", bool(
+            ((dvol - dref).abs() <= 1e-5 + 1e-5 * dref.abs()).all())
+    else:
+        tol, dok = "2^-7 rel + 1e-5", bool(
+            ((dvol - dref).abs() <= 2.0**-7 * dref.abs() + 1e-5).all())
+    print(f"  {label} {shape} {str(dtype)[6:]}: K6a equal to the plain "
+          f"sample: {exact}; K6b max |kernel - plain| = {pos_err:.3g} "
+          f"(tolerance 1e-6 abs + 1e-5 rel); K6c max |kernel - plain| = "
+          f"{derr:.3g} (tolerance {tol})")
+    require(exact and pos_ok and dok, f"K6 disagrees ({label}, {dtype})")
+    return err, pos_err, derr
+
+
 def check_warp3d():
     phase("4c. K6a (trilinear warp), K6b (positions' cotangent) and K6c (volume "
           "cotangent) against their plain versions")
@@ -751,51 +833,55 @@ def check_warp3d():
     for label, shape, scale, dz in WARP3D_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             vol, (px, py, pz) = warp3d_inputs(shape, scale, 30, dtype, dz)
-            got = sample3d_cuda(vol, px, py, pz)
-            want = sample3d_gather(vol.float(), px, py, pz)
-            torch.cuda.synchronize()
-            # K6a: the plain version's roundings, in its order
-            exact = bool(torch.equal(got, want))
-            err = float((got - want).abs().max())
-            del got, want
-            b, c = shape[:2]
-            grad = torch.randn((b, c, px.shape[1]), device=DEV,
-                               generator=torch.Generator(device=DEV).manual_seed(31))
-            dpos = sample3d_dpos_cuda(grad, vol, px, py, pz)
-            ref = sample3d_dpos_reference(grad, vol, px, py, pz)
-            torch.cuda.synchronize()
-            # K6b: the bases are the same products of corner values summed as
-            # tpureg's _gather_taps sums them, not as autograd's chain, and
-            # contracted with g in channel order; the volume's bf16 values
-            # are exact in fp32, so both dtypes take the same tolerance
-            pos_err = max(float((k - r).abs().max()) for k, r in zip(dpos, ref))
-            pos_ok = all(bool(((k - r).abs() <= 1e-6 + 1e-5 * r.abs()).all())
-                         for k, r in zip(dpos, ref))
-            del dpos, ref
-            dvol = sample3d_dvol_cuda(grad, px, py, pz, shape, dtype).float()
-            dref = sample3d_dvol_reference(grad, px, py, pz, shape, dtype).float()
-            torch.cuda.synchronize()
-            derr = float((dvol - dref).abs().max())
-            if dtype == torch.float32:
-                # the same products added by atomics in an order that
-                # changes from run to run
-                tol, dok = "1e-5 abs + 1e-5 rel", bool(
-                    ((dvol - dref).abs() <= 1e-5 + 1e-5 * dref.abs()).all())
-            else:
-                tol, dok = "2^-7 rel + 1e-5", bool(
-                    ((dvol - dref).abs() <= 2.0**-7 * dref.abs() + 1e-5).all())
-            print(f"  {label} {tuple(shape)} {str(dtype)[6:]}: K6a equal to the plain "
-                  f"sample: {exact}; K6b max |kernel - plain| = {pos_err:.3g} "
-                  f"(tolerance 1e-6 abs + 1e-5 rel); K6c max |kernel - plain| = "
-                  f"{derr:.3g} (tolerance {tol})")
-            require(exact and pos_ok and dok, f"K6 disagrees ({label}, {dtype})")
+            found = check_warp3d_case(label, vol, px, py, pz, dtype)
             if dtype == torch.float32 and "C1" not in label:
-                errs["warp3d"][label] = err
-                errs["warp3d_dpos"][label] = pos_err
-                errs["warp3d_dvol"][label] = derr
-            del vol, px, py, pz, grad, dvol, dref
+                for key, err in zip(errs, found):
+                    errs[key][label] = err
+            del vol, px, py, pz
             torch.cuda.empty_cache()
     return errs
+
+
+def lookup_positions(b, h, w, seed, radius=4):
+    """RAFT's lookup positions [B, (2r+1)²] over B one-channel [h, w] maps:
+    a centre a map, uniform over the map and 2 px past each border, plus the
+    offsets -r..r in x and y, dy-major, so that many taps fall outside."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    cx = torch.rand((b, 1), device=DEV, generator=g) * (w + 3) - 2
+    cy = torch.rand((b, 1), device=DEV, generator=g) * (h + 3) - 2
+    d = torch.arange(-radius, radius + 1, device=DEV, dtype=torch.float32)
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    return ((cx + dx.reshape(1, -1)).contiguous(),
+            (cy + dy.reshape(1, -1)).contiguous())
+
+
+def check_any_batch():
+    phase("4e. K3, K4, K5 and K6a-c over more batch rows than one launch's grid "
+          "holds (65535)")
+    # RAFT's lookup at batch 16, 256² (16 · 64², raft-reg's level 0 maps) and
+    # one row more, on 4 x 4 maps at its 81 positions; the rows past 65535
+    # run in a launch of their own
+    for b in (65536, 65537):
+        shape = (b, 1, 4, 4)
+        for dtype in (torch.float32, torch.bfloat16):
+            img = torch.rand(shape, device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(b)).to(dtype)
+            px, py = lookup_positions(b, 4, 4, seed=b + 1)
+            got = sample2d_cuda(img, px, py)
+            exact = bool(torch.equal(got, sample2d_gather(img.float(), px, py)))
+            tail = slice(65530, b)
+            alone = sample2d_cuda(img[tail].contiguous(), px[tail].contiguous(),
+                                  py[tail].contiguous())
+            same = bool(torch.equal(got[tail], alone))
+            print(f"  K3 {shape} P=81 {str(dtype)[6:]}: equal to the plain gather: "
+                  f"{exact}; its last {b - 65530} rows equal to a launch of them "
+                  f"alone: {same}")
+            require(exact and same, f"K3 disagrees at batch {b} ({dtype})")
+            check_dpos(f"{shape} P=81", img, px, py)
+            check_dimg(f"{shape} P=81", shape, px, py, dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        vol, (px, py, pz) = warp3d_inputs((65536, 1, 2, 2, 2), 0.5, 32, dtype)
+        check_warp3d_case("batch 65536", vol, px, py, pz, dtype)
 
 
 # PWC's four feature warps at 256², batch 8: (level, C, h) for levels 5-2
@@ -1052,32 +1138,42 @@ def gradients3d(model, make_step, vols):
                                     for n, p in model.named_parameters()}
 
 
-def card_against_cpu(label, cpu_model, make_step, vols):
+def cpu_gradients(cpu_model, make_step, vols):
+    """The CPU's loss and gradients of one step of ``cpu_model`` on
+    ``vols``, in fp32 and in fp64: ((loss, grads), (loss64, grads64))."""
+    fp64_model = copy.deepcopy(cpu_model).double()
+    t0 = time.time()
+    fp32 = gradients3d(cpu_model, make_step, vols)
+    fp64 = gradients3d(fp64_model, make_step, vols.double())
+    print(f"  CPU plain path, batch 1 {tuple(vols.shape[1:4])}, fp32 and fp64: "
+          f"{time.time() - t0:.1f} s")
+    return fp32, fp64
+
+
+def gradient_distance(grads, rgrads):
+    """Relative L2 distance of ``grads`` from ``rgrads``: over the whole
+    model, and the median and worst over its tensors."""
+    errs = sorted(float((grads[k] - rgrads[k]).norm()
+                        / max(float(rgrads[k].norm()), 1e-30)) for k in rgrads)
+    diff2 = sum(float(((grads[k] - rgrads[k]) ** 2).sum()) for k in rgrads)
+    ref2 = sum(float((rgrads[k] ** 2).sum()) for k in rgrads)
+    return (diff2 / ref2) ** 0.5, errs[len(errs) // 2], errs[-1]
+
+
+def card_against_cpu(label, cpu_model, make_step, vols, cpu=None):
     """Batch 1 at a size the CPU runs quickly: the card's loss against the
     CPU's (1e-4 relative), and the card's fp32 gradient no further from the
     CPU's fp64 gradient than twice the CPU's fp32 gradient is (or 1e-5,
-    where fp32 rounding alone sets the distance)."""
+    where fp32 rounding alone sets the distance). ``cpu``: the CPU's
+    ``cpu_gradients``, computed here when not given."""
     card_model = copy.deepcopy(cpu_model).to(DEV)
-    fp64_model = copy.deepcopy(cpu_model).double()
-    t0 = time.time()
-    closs, cgrads = gradients3d(cpu_model, make_step, vols)
-    rloss, rgrads = gradients3d(fp64_model, make_step, vols.double())
-    print(f"  CPU plain path, batch 1 {tuple(vols.shape[1:4])}, fp32 and fp64: "
-          f"{time.time() - t0:.1f} s")
+    (closs, cgrads), (rloss, rgrads) = cpu or cpu_gradients(cpu_model, make_step, vols)
     gloss, ggrads = gradients3d(card_model, make_step, vols.to(DEV))
     rel = abs(gloss / closs - 1)
     print(f"  {label} batch 1 loss: card {gloss:.9g}, CPU {closs:.9g}, {rel:.3g} "
           f"relative (tolerance 1e-4); CPU fp64 {rloss:.12g}")
     require(rel <= 1e-4, f"{label}: card and CPU losses disagree")
-
-    def spread(grads):
-        errs = sorted(float((grads[k] - rgrads[k]).norm()
-                            / max(float(rgrads[k].norm()), 1e-30)) for k in rgrads)
-        diff2 = sum(float(((grads[k] - rgrads[k]) ** 2).sum()) for k in rgrads)
-        ref2 = sum(float((rgrads[k] ** 2).sum()) for k in rgrads)
-        return (diff2 / ref2) ** 0.5, errs[len(errs) // 2], errs[-1]
-
-    card, cpu = spread(ggrads), spread(cgrads)
+    card, cpu = gradient_distance(ggrads, rgrads), gradient_distance(cgrads, rgrads)
     for name, (whole, median, worst) in (("card fp32", card), ("CPU fp32", cpu)):
         print(f"  {label} batch 1 gradients, {name} vs CPU fp64, relative L2: whole "
               f"model {whole:.3g}, per tensor median {median:.3g}, worst {worst:.3g}")
@@ -1589,6 +1685,151 @@ def pwc_path(pair_dirs, train_dirs):
         require(got["correlation"] == 2 * 5 and got["correlation_bwd"] == 0
                 and got["warp2d_dpos"] == 0 and got["warp2d_dimg"] == 0,
                 "pwc-reg inference --mode synthetic: launch counts")
+    return ({"eval": eval_launches, "train": train_launches},
+            {"eval": eval_steps, "train": train_steps}, imgs, segs)
+
+
+def raft_path(pair_dirs, train_dirs):
+    phase("8i. RAFT: raft-reg eval and train steps at 256², batch 8, fp32 and bf16; "
+          "raft's; card against CPU; both 2-D CLIs with raft-reg")
+    loss_kwargs = default_loss_kwargs("raft-reg")  # None: all 5 flows, ascending
+    n = {name: sum(p.numel() for p in build_predictor(name).parameters())
+         for name in ("raft-reg", "raft")}
+    print(f"  parameters: raft-reg {n['raft-reg']}, raft {n['raft']}; seeded random "
+          f"weights; 5 iterations; the loss reads all 5 flows, ascending weights")
+    model = OpticalFlowReg("raft-reg", generator=torch.Generator().manual_seed(30))
+    model.to(DEV)
+    imgs, segs = phantom_batch(BATCH, SIZE, seed=31)
+    imgs, segs = imgs.to(DEV), segs.to(DEV)
+    eval_launches, eval_steps = {}, {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        step = make_eval_step(model, loss_kwargs, dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        (flows, warped, wsegs, grid), metrics = step(imgs, segs)
+        torch.cuda.synchronize()
+        eval_launches[name] = counts()
+        print(f"  eval {name}: launches {eval_launches[name]}; loss "
+              f"{float(metrics['loss']):.6g}; |flow0| max "
+              f"{float(flows[0].float().abs().max()):.4g} px")
+        require(eval_launches[name] == RAFT_REG_EVAL_LAUNCHES,
+                f"raft-reg's {name} eval step should launch {RAFT_REG_EVAL_LAUNCHES}")
+        require(len(flows) == len(warped) == 5
+                and all(tuple(f.shape) == (BATCH, SIZE, SIZE, 2) for f in flows)
+                and all(tuple(w.shape) == (BATCH, SIZE, SIZE, 1) for w in warped)
+                and wsegs.shape == grid.shape == (BATCH, SIZE, SIZE, 1),
+                "raft-reg: output shapes")
+        for t in (*flows, *warped, wsegs, grid, *metrics.values()):
+            require(bool(torch.isfinite(t.float()).all()), f"raft-reg {name}: non-finite output")
+        require(set(torch.unique(wsegs).tolist()) <= {0.0, 1.0, 2.0, 3.0},
+                "warped labels outside 0..3")
+        eval_steps[name] = step
+
+    train_launches, train_steps = {}, {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        tmodel = OpticalFlowReg("raft-reg", generator=torch.Generator().manual_seed(32))
+        state = create_train_state(tmodel.to(DEV))
+        step = make_train_step(state, loss_kwargs, dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        metrics = step(imgs)
+        torch.cuda.synchronize()
+        train_launches[name] = counts()
+        print(f"  train {name}: launches in one step {train_launches[name]}")
+        require(train_launches[name] == RAFT_REG_TRAIN_LAUNCHES,
+                f"raft-reg's {name} train step should launch {RAFT_REG_TRAIN_LAUNCHES}")
+        loss_falls(f"raft-reg train {name}", step, imgs, float(metrics["loss"]))
+        require(state.step == 5 and all(bool(torch.isfinite(p).all())
+                                         for p in tmodel.parameters()),
+                f"raft-reg {name}: step count or non-finite weights")
+        train_steps[name] = step
+
+    # batch 1 against the same weights on the CPU, through the plain versions
+    cpu_model = copy.deepcopy(model).cpu()
+    flops = conv_flops(cpu_model.eval(), imgs[:1].cpu())
+    print(f"  raft-reg's convolutions: {flops / 1e9:.3f} GFLOP a pair forward at 256², "
+          f"{BATCH * flops / 1e9:.3f} at batch {BATCH} (the correlation's product "
+          f"{2 * (SIZE // 4) ** 4 * 128 / 1e9:.3f} GFLOP a pair beside them)")
+    (cflows, _, _, _), cmetrics = make_eval_step(cpu_model, loss_kwargs)(
+        imgs[:1].cpu(), segs[:1].cpu())
+    (gflows, _, _, _), gmetrics = eval_steps["fp32"](imgs[:1], segs[:1])
+    check_flows("raft-reg eval, batch 1, card vs CPU (fp32, no TF32),", gflows, cflows)
+    for k in cmetrics:
+        r = abs(float(gmetrics[k]) / float(cmetrics[k]) - 1)
+        print(f"    {k}: card {float(gmetrics[k]):.7g}, CPU {float(cmetrics[k]):.7g}, "
+              f"{r:.3g} relative (tolerance 1e-4)")
+        require(r <= 1e-4, f"raft-reg: card and CPU {k} disagree")
+    # the fp32-gradient rule, held with PyTorch's own CUDA convolutions:
+    # with cuDNN's (whose backward of RAFT's convolutions runs as FFTs at
+    # batch 8, PERF.md §5) the card's fp32 gradient lies about 3 times the
+    # CPU's distance from fp64, without cuDNN as far as the CPU's, so the
+    # distance is cuDNN's algorithms and not the port's kernels (PERF.md
+    # §6); the cuDNN run's distance is printed beside the held one
+    net = OpticalFlowReg("raft-reg", generator=torch.Generator().manual_seed(33))
+    step_of = lambda st: make_train_step(st, loss_kwargs)
+    cpu = cpu_gradients(net, step_of, imgs[:1].cpu())
+    with torch.backends.cudnn.flags(enabled=False):
+        card_against_cpu("raft-reg (convolutions without cuDNN)", net, step_of,
+                         imgs[:1].cpu(), cpu)
+    _, ggrads = gradients3d(copy.deepcopy(net).to(DEV), step_of, imgs[:1])
+    whole, median, worst = gradient_distance(ggrads, cpu[1][1])
+    print(f"  raft-reg (cuDNN's convolutions, not held) batch 1 gradients, card fp32 "
+          f"vs CPU fp64, relative L2: whole model {whole:.3g}, per tensor median "
+          f"{median:.3g}, worst {worst:.3g}")
+
+    # raft, 1/8 resolution: eval at batch 1 against the CPU; one eval and
+    # one train step at batch 8 for its launches
+    net = OpticalFlowReg("raft", generator=torch.Generator().manual_seed(34))
+    want = make_eval_step(net, loss_kwargs)(imgs[:1].cpu(), segs[:1].cpu())[0][0]
+    card_net = copy.deepcopy(net).to(DEV)
+    got = make_eval_step(card_net, loss_kwargs)(imgs[:1], segs[:1])[0][0]
+    check_flows("raft eval, batch 1, card vs CPU,", got, want)
+    torch.cuda.synchronize()
+    reset_counts()
+    make_eval_step(card_net, loss_kwargs)(imgs, segs)
+    torch.cuda.synchronize()
+    raft_eval = counts()
+    reset_counts()
+    metrics = make_train_step(create_train_state(card_net), loss_kwargs)(imgs)
+    torch.cuda.synchronize()
+    raft_train = counts()
+    print(f"  raft at batch {BATCH}: eval step launches {raft_eval}; train step "
+          f"{raft_train}; loss {float(metrics['loss']):.6g}")
+    require(raft_eval == RAFT_EVAL_LAUNCHES and raft_train == RAFT_TRAIN_LAUNCHES,
+            f"raft's steps should launch {RAFT_EVAL_LAUNCHES} and {RAFT_TRAIN_LAUNCHES}")
+    require(bool(torch.isfinite(metrics["loss"])), "raft: non-finite loss")
+    del card_net, net
+
+    # both 2-D CLIs with --model raft-reg
+    with tempfile.TemporaryDirectory() as work:
+        train_cli_and_resume("raft-reg", train_dirs, work)
+        require(os.path.isfile(best_weight_path(work, "RAFT")),
+                "the training CLI did not save raft-reg's best weights under RAFT")
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            results = cli_inference.main([
+                "--mode", "real", "--model", "raft-reg", "--batch_size", "1",
+                "--fiximg_dir", pair_dirs["fiximg"], "--fixseg_dir", pair_dirs["fixseg"],
+                "--movimg_dir", pair_dirs["movimg"], "--movseg_dir", pair_dirs["movseg"],
+                "--workdir", work, "--logdir", os.path.join(work, "log_eval"),
+                "--max_samples", "4"], device="cuda")
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"  raft-reg inference --mode real on the best weights, 4 pairs: "
+              f"launches {got}")
+        for line in cli_summary(out.getvalue()):
+            print(f"    {line}")
+        require("loaded best weights ({" in out.getvalue()
+                and got == {k: 4 * n for k, n in RAFT_REG_EVAL_LAUNCHES.items()},
+                "raft-reg inference --mode real: weights or launch counts")
+        require(all(np.isfinite(v) for v in results.values()),
+                "raft-reg inference --mode real: a metric is not finite")
+        got = synthetic_eval_cli("raft-reg", train_dirs, work)
+        # 2 batches of 4: each eval step's launches and one K3 in the
+        # batch's elastic synthesis
+        require(got == launches_of(warp2d=2 * (RAFT_REG_EVAL_LAUNCHES["warp2d"] + 1)),
+                "raft-reg inference --mode synthetic: launch counts")
     return ({"eval": eval_launches, "train": train_launches},
             {"eval": eval_steps, "train": train_steps}, imgs, segs)
 
@@ -2200,6 +2441,128 @@ def pwc_timings(errs):
     return rows
 
 
+def touched_taps(shape, px, py):
+    """How many distinct image pixels the in-image taps of ``px``, ``py``
+    [B, P] reach in images [B, C, H, W], counted once a batch row: what a
+    sample must read of a one-channel image when its positions cover only
+    part of it (RAFT's lookups)."""
+    b, _, h, w = shape
+    x0, y0 = px.floor().long(), py.floor().long()
+    row = torch.arange(b, device=DEV)[:, None] * (h * w)
+    idx = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x, y = x0 + dx, y0 + dy
+            ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+            idx.append((row + y * w + x)[ok])
+    return int(torch.unique(torch.cat(idx)).numel())
+
+
+def raft_lookup_positions(b, h, w, lvl, seed):
+    """raft-reg's lookup positions at pyramid level ``lvl`` of [h, w]
+    level-0 maps: one map a pixel of B [h, w] feature maps, centred at the
+    pixel plus a smooth 2 px flow, scaled by 2^-lvl, and the 9 x 9 offsets
+    around it, dy-major: [B·h·w, 81]."""
+    flow = smooth_flow(b, h, w, 2.0, seed)
+    cx = (torch.arange(w, device=DEV, dtype=torch.float32) + flow[:, 0]).reshape(-1, 1)
+    cy = (torch.arange(h, device=DEV, dtype=torch.float32)[:, None]
+          + flow[:, 1]).reshape(-1, 1)
+    d = torch.arange(-4, 5, device=DEV, dtype=torch.float32)
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    scale = 2.0**lvl
+    return ((cx / scale + dx.reshape(1, -1)).contiguous(),
+            (cy / scale + dy.reshape(1, -1)).contiguous())
+
+
+def raft_timings():
+    """K3, K4 and K5 at raft-reg's shapes at 256², fp32 and bf16, each beside
+    its plain version and, in fp32, the library call on the same positions
+    (``grid_sample``, ``grid_sampler_2d_backward`` d/dgrid and d/dinput):
+    the lookup at level 0 (batch 8: 8 · 64² maps of 64²), at level 3 (maps
+    of 8²) and at batch 16 (65,536 maps, more than one launch's 65,535
+    rows), 81 positions a map; and the feature warp of the moving features,
+    (8, 128, 64, 64), "pixel" convention, at a smooth 2 px flow. K3's and
+    K4's bounds count the image pixels that the taps reach."""
+    rows = []
+    backward = torch.ops.aten.grid_sampler_2d_backward
+    cases = (("lookup_l0", 8, 0, 64), ("lookup_l3", 8, 3, 8),
+             ("lookup_b16", 16, 0, 64), ("feature_warp", 8, None, 64))
+    for label, b, lvl, h in cases:
+        if lvl is None:
+            shape = (b, 128, h, h)
+            flow = smooth_flow(b, h, h, 2.0, seed=80)
+            px = (torch.arange(h, device=DEV, dtype=torch.float32) + flow[:, 0]).reshape(b, -1)
+            py = (torch.arange(h, device=DEV, dtype=torch.float32)[:, None]
+                  + flow[:, 1]).reshape(b, -1)
+            px, py = px.contiguous(), py.contiguous()
+            touched = None
+            out_hw = (h, h)
+        else:
+            shape = (b * 64 * 64, 1, h, h)
+            px, py = raft_lookup_positions(b, 64, 64, lvl, seed=81)
+            touched = touched_taps(shape, px, py)
+            out_hw = (9, 9)
+        n, c = shape[:2]
+        p = px.shape[1]
+        g = torch.Generator(device=DEV).manual_seed(82)
+        img32 = torch.randn(shape, device=DEV, generator=g)
+        cot = torch.randn((n, c, p), device=DEV, generator=g)
+        # grid_sample's grid for pixel positions, align_corners=True
+        grid = torch.stack([px * (2 / (h - 1)) - 1, py * (2 / (h - 1)) - 1],
+                           -1).reshape(n, *out_hw, 2)
+        cot_img = cot.reshape(n, c, *out_hw)
+        print(f"  RAFT {label} {shape}, P={p}"
+              + ("" if touched is None else
+                 f": the taps reach {touched} pixels of {n * h * h}"))
+        for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            img = img32.to(dtype)
+            got = sample2d_cuda(img, px, py)
+            require(bool(torch.equal(got, sample2d_gather(img.float(), px, py))),
+                    f"K3 disagrees at RAFT's {label}")
+            del got
+            dpos_err = check_dpos(f"RAFT {label}", img, px, py)
+            dimg_err = check_dimg(f"RAFT {label}", shape, px, py, dtype)
+            lib = lib_dpos = lib_dimg = None
+            if dtype == torch.float32:
+                lib = time_ms(lambda: F.grid_sample(img, grid, mode="bilinear",
+                                                    padding_mode="zeros",
+                                                    align_corners=True), 100)
+                lib_dpos = time_ms(lambda: backward(cot_img, img, grid, 0, 0, True,
+                                                    [False, True]), 100)
+                lib_dimg = time_ms(lambda: backward(cot_img, img, grid, 0, 0, True,
+                                                    [True, False]), 50)
+            nbytes, flops = warp_work(img, p)
+            if touched is not None:
+                nbytes -= img.numel() * img.element_size() - touched * img.element_size()
+            ms = time_ms(lambda: sample2d_cuda(img, px, py), 100)
+            plain = time_ms(lambda: sample2d_gather(img, px, py), 5, head_start_ms=100.0)
+            rows.append(kernel_row(
+                f"warp2d_raft_{label}{sfx}", "warp2d.cu", "tpureg/ops/warp_pallas.py:183",
+                "warp2d", "raft_train", 0.0, ms, plain, (nbytes, flops), torch.float32,
+                lib))
+            nbytes, flops = warp_dpos_work(img, p)
+            if touched is not None:
+                nbytes -= img.numel() * img.element_size() - touched * img.element_size()
+            ms = time_ms(lambda: sample2d_dpos_cuda(cot, img, px, py), 100)
+            plain = time_ms(lambda: sample2d_dpos_reference(cot, img, px, py), 3,
+                            head_start_ms=100.0)
+            rows.append(kernel_row(
+                f"warp2d_dpos_raft_{label}{sfx}", "warp2d_grad.cu",
+                "tpureg/ops/warp_pallas.py:197", "warp2d_dpos", "raft_train", dpos_err,
+                ms, plain, (nbytes, flops), torch.float32, lib_dpos))
+            ms = time_ms(lambda: sample2d_dimg_cuda(cot, px, py, shape, dtype), 50)
+            plain = time_ms(lambda: sample2d_dimg_reference(cot, px, py, shape, dtype), 3,
+                            head_start_ms=100.0)
+            rows.append(kernel_row(
+                f"warp2d_dimg_raft_{label}{sfx}", "warp2d_grad.cu",
+                "tpureg/ops/warp_pallas.py:230", "warp2d_dimg", "raft_train", dimg_err,
+                ms, plain, warp_dimg_work(shape, p, dtype), torch.float32, lib_dimg))
+            del img
+        del img32, cot, cot_img, grid, px, py
+        torch.cuda.empty_cache()
+    return rows
+
+
 def composition_positions(field):
     """Positions [B, P] of ``field`` [B, C, ...] (C = 2 or 3) composed with
     itself: the grid plus the field, (x, y[, z])."""
@@ -2440,6 +2803,7 @@ def main():
     errs = {"corr": check_correlation(), "corr_bwd": check_correlation_bwd(),
             "warp": check_warp(), **check_warp_grads(), "warp3d": check_warp3d(),
             "pwc": check_pwc_warps()}
+    check_any_batch()
     mark("kernel checks")
 
     model = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(0))
@@ -2472,9 +2836,11 @@ def main():
     syn3d_launches, syn3d_args, syn3d_flow = syn3d_path()
     mark("3-D SyN")
     pwc_launches, pwc_steps, pwc_imgs, pwc_segs = pwc_path(pair_dirs, train_dirs)
+    mark("PWC family")
+    raft_launches, raft_steps, raft_imgs, raft_segs = raft_path(pair_dirs, train_dirs)
     pairs.cleanup()
     train_vols.cleanup()
-    mark("PWC family")
+    mark("RAFT")
     vol_steps = {"affine": affine_step, "deform": deform_step}
     kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                       vol_steps, vols, vflow, velocity)
@@ -2490,6 +2856,15 @@ def main():
     for name, step in pwc_steps["train"].items():
         step_times(f"pwc-reg train step {name}, batch {BATCH} at 256²",
                    lambda: step(pwc_imgs))
+    raft_rows = raft_timings()
+    print_rows(raft_rows)
+    kernels += raft_rows
+    for name, step in raft_steps["eval"].items():
+        step_times(f"raft-reg eval step {name}, batch {BATCH} at 256² with segs",
+                   lambda: step(raft_imgs, raft_segs)[1])
+    for name, step in raft_steps["train"].items():
+        step_times(f"raft-reg train step {name}, batch {BATCH} at 256²",
+                   lambda: step(raft_imgs))
     syn_calls = {"register_syn": lambda f, m, k: register_syn(f, m, k, (10, 0, 0))}
     syn3d_calls = {"register_syn3d": lambda f, m: register_syn3d(f, m)}
     step_times("register_syn at 256², (10, 0, 0)",
@@ -2505,13 +2880,16 @@ def main():
     breakdown("3-D train step", vol_steps, (vols,))
     breakdown("pwc-reg eval step", pwc_steps["eval"], (pwc_imgs, pwc_segs))
     breakdown("pwc-reg train step", pwc_steps["train"], (pwc_imgs,))
+    breakdown("raft-reg eval step", raft_steps["eval"], (raft_imgs, raft_segs))
+    breakdown("raft-reg train step", raft_steps["train"], (raft_imgs,))
     breakdown("registration", syn_calls, syn_args)
     breakdown("registration", syn3d_calls, syn3d_args)
     mark("breakdown")
     launches = {"eval": eval_launches, "train": train_launches,
                 "affine": {"fp32": affine_launches}, "deform": {"fp32": deform_launches},
                 "syn": {"fp32": syn_launches}, "syn3d": {"fp32": syn3d_launches},
-                "pwc_eval": pwc_launches["eval"], "pwc_train": pwc_launches["train"]}
+                "pwc_eval": pwc_launches["eval"], "pwc_train": pwc_launches["train"],
+                "raft_eval": raft_launches["eval"], "raft_train": raft_launches["train"]}
     for row in kernels:
         dtype = "bf16" if row["name"].endswith("_bf16") else "fp32"
         row["launches"] = launches[row.pop("_path")][dtype][row.pop("_counter")]

@@ -405,6 +405,55 @@ def test_warp_dimg_any_layout_matches_plain(dev, dtype, shape, layout):
         _bf16_close(got, want, atol=1e-5)
 
 
+def _lookup_positions(dev, b, h, w, seed):
+    """RAFT's lookup positions [B, 81]: a centre a map, uniform over the map
+    and 2 px past each border, plus the offsets -4..4 in x and y, dy-major,
+    so that many taps fall outside."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cx = torch.rand((b, 1), device=dev, generator=g) * (w + 3) - 2
+    cy = torch.rand((b, 1), device=dev, generator=g) * (h + 3) - 2
+    d = torch.arange(-4, 5, device=dev, dtype=torch.float32)
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    return ((cx + dx.reshape(1, -1)).contiguous(),
+            (cy + dy.reshape(1, -1)).contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,layout", [(65536, "P=81"), (65537, "P=81"),
+                                      (65537, "grid")])
+def test_warp_kernels_take_any_batch(dev, dtype, b, layout):
+    """K3, K4 and K5 over more batch rows than the grid's y axis holds
+    (65535), which they launch in chunks of rows: one-channel 4 x 4 maps at
+    RAFT's 81 lookup positions (65536 is RAFT's lookup at batch 16, 256²)
+    and at the pixel grid plus noise (P = H·W, K5's other layout). K3 equals
+    the plain gather, K4 and K5 agree with theirs at the tolerances above,
+    and the rows of the last chunk give what a launch of them alone gives."""
+    shape = (b, 1, 4, 4)
+    g = torch.Generator(device=dev).manual_seed(b)
+    img = torch.rand(shape, device=dev, generator=g).to(dtype)
+    if layout == "grid":
+        px, py = _positions(dev, b, 4, 4, scale=1.5, seed=18)
+    else:
+        px, py = _lookup_positions(dev, b, 4, 4, seed=18)
+    got = sample2d_cuda(img, px, py)
+    torch.testing.assert_close(got, sample2d_gather(img.float(), px, py), atol=0, rtol=0)
+    grad = torch.randn((b, 1, px.shape[1]), device=dev, generator=g)
+    dpos = sample2d_dpos_cuda(grad, img, px, py)
+    _assert_dpos_close(dpos, grad, img, px, py)
+    dimg = sample2d_dimg_cuda(grad, px, py, shape, dtype)
+    want = sample2d_dimg_reference(grad, px, py, shape, dtype)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(dimg, want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(dimg, want, atol=1e-5)
+    tail = slice(65530, b)
+    part = [t[tail].contiguous() for t in (img, px, py, grad)]
+    assert torch.equal(got[tail], sample2d_cuda(*part[:3]))
+    for k, alone in zip(dpos, sample2d_dpos_cuda(part[3], *part[:3])):
+        assert torch.equal(k[tail], alone)
+
+
 def test_warp_autograd_runs_k4_and_k5(dev):
     g = torch.Generator(device=dev).manual_seed(12)
     img = torch.rand((2, 3, 16, 24), device=dev, generator=g).requires_grad_()
@@ -619,9 +668,10 @@ def _rearrange3d(pos, mode, seed):
 # (shape, displacement std, uniform z shift, position layout): the final
 # warp's volume at a reduced size, a composition's 3-channel field, fault
 # C1's configuration (d = 32, dz = ±8.5), scattered positions far beyond any
-# TPU window, and K6c's layouts (sub-voxel displacements, whose merged sums
-# go straight to global atomics; ragged bricks at C = 1 and 3; outliers;
-# permuted positions; P ≠ D·H·W)
+# TPU window, K6c's layouts (sub-voxel displacements, whose merged sums go
+# straight to global atomics; ragged bricks at C = 1 and 3; outliers;
+# permuted positions; P ≠ D·H·W), and more batch rows than one launch's
+# grid holds (65535)
 WARP3D_CASES = [((2, 1, 44, 64, 64), 0.7, 0.0, "grid"),
                 ((2, 3, 22, 32, 32), 0.5, 0.0, "grid"),
                 ((1, 1, 32, 64, 64), 0.3, -8.5, "grid"),
@@ -632,9 +682,10 @@ WARP3D_CASES = [((2, 1, 44, 64, 64), 0.7, 0.0, "grid"),
                 ((2, 3, 11, 20, 36), 0.5, 0.0, "grid"),
                 ((2, 3, 22, 32, 32), 0.5, 0.0, "outliers"),
                 ((1, 3, 16, 24, 40), 0.5, 0.0, "permuted"),
-                ((2, 3, 11, 20, 36), 0.5, 0.0, "prefix")]
+                ((2, 3, 11, 20, 36), 0.5, 0.0, "prefix"),
+                ((65536, 1, 2, 2, 2), 0.5, 0.0, "grid")]
 WARP3D_IDS = ["final", "composition", "c1-neg", "c1-pos", "scattered", "sub-voxel",
-              "ragged-c1", "ragged-c3", "outliers", "permuted", "prefix"]
+              "ragged-c1", "ragged-c3", "outliers", "permuted", "prefix", "batch-65536"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

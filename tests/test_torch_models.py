@@ -137,11 +137,12 @@ def test_bridge_rejects_unknown_leaf():
         state_dict_from_jax({"conv1": {"bn": {"bogus": np.zeros(2)}}}, prefix=())
 
 
-@pytest.mark.parametrize("name", ["flownets", "raft", "flownet2-c", "flownetc",
-                                  "raft-reg", "raft-pwc", "flownets-full"])
+@pytest.mark.parametrize("name", ["flownets", "flownet2-c", "flownetc",
+                                  "flownets-full"])
 def test_registry_ports_only_flownet2(name):
-    """Of the FlowNet and RAFT names only the cascade is ported; the PWC
-    names are covered by tests/test_torch_pwc.py."""
+    """Of the FlowNet names only the cascade is ported; the PWC names are
+    covered by tests/test_torch_pwc.py and the RAFT names by
+    tests/test_torch_raft.py."""
     assert isinstance(build_predictor("flownet2"), FlowNet2)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_predictor(name)

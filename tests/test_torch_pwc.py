@@ -283,11 +283,6 @@ def test_registry_maps_pwc_names_as_tpureg(name, kind, kwargs):
         assert net.conv6_0[0].in_channels == 81 + (392 if net.feed_warped else 0)
 
 
-def test_registry_still_refuses_raft_with_pwc_in_its_name():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_predictor("raft-pwc")
-
-
 # ---------------------------------------------------------------------------
 # forward parity at 64² (flow6 at 1 x 1)
 

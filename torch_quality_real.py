@@ -17,9 +17,13 @@ the same real inter-subject pairs (the inference CLI's
 
 The defaults are FlowNet2's recipe that passed on the reference's
 accelerator: 2000 steps at aug_hi 3.0 and no decay phase (about 6 minutes
-on an H100). pwc-reg's was 3500 steps and 700 more at 1e-5:
+on an H100). pwc-reg's was 3500 steps and 700 more at 1e-5; raft-reg, which
+has no threshold of the reference's, runs 4500 and 800 (at batch 16 its
+lookup samples 16 · 64² correlation maps, more rows than one launch's grid
+holds):
 
     python torch_quality_real.py 3500 3.0 pwc-reg 700
+    python torch_quality_real.py 4500 3.0 raft-reg 800
 
 Prints the Dice table and PASS (deep >= SyN, exit 0) or FAIL (exit 1).
 Needs one CUDA card.

@@ -118,8 +118,8 @@ def build_argparser():
     p.add_argument("--movseg_dir", default="OASIS1/movseg")
     p.add_argument("--mode", default="real", choices=("real", "synthetic"))
     p.add_argument("--model", default="flownet2",
-                   help="flownet2, pwc, pwc-bilinear or pwc-reg (the "
-                        "registry names ported so far)")
+                   help="flownet2, pwc, pwc-bilinear, pwc-reg, raft or "
+                        "raft-reg (the registry names ported so far)")
     p.add_argument("--batch_size", default=1, type=int)
     p.add_argument("--workdir", default=".")
     p.add_argument("--logdir", default="./log_eval")

@@ -124,8 +124,8 @@ def build_argparser():
     p.add_argument("--img_dir", default="OASIS1/masked", metavar="DIR_Img")
     p.add_argument("--seg_dir", default="OASIS1/seg", metavar="DIR_Seg")
     p.add_argument("--model", default="flownet2",
-                   help="flownet2, pwc, pwc-bilinear or pwc-reg (the "
-                        "registry names ported so far)")
+                   help="flownet2, pwc, pwc-bilinear, pwc-reg, raft or "
+                        "raft-reg (the registry names ported so far)")
     p.add_argument("--epochs", default=4, type=int)
     p.add_argument("--batch_size", default=24, type=int)
     p.add_argument("--lrIni", default=1e-4, type=float)

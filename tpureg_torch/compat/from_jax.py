@@ -24,6 +24,12 @@ flax modules are (``enc0/conv/kernel`` → ``enc0.conv.weight``,
 ``flow_head/bias`` → ``flow_head.bias``, ``conv3/kernel`` →
 ``conv3.weight``, ``fc/kernel`` → ``fc.weight``): Conv3D kernels go from
 DHWIO to OIDHW, the dense kernel from (in, out) to (out, in).
+``state_dict_from_jax_raft`` does the same for ``RAFT``, whose tree has no
+``batch_stats``: convolution kernels (``fnet/res1a/conv1/kernel``,
+``menc1/kernel``, ``gru/convz/kernel``, ``fh2/kernel``) go from HWIO to
+OIHW, and GroupNorm's ``scale`` (``fnet/stem_norm/scale``) becomes
+``weight``. The reference vendors no RAFT, so there is no torch export to
+follow: the module names are flax's.
 
 ``load_adam_state_from_jax`` carries optax's Adam state (``count``, ``mu``,
 ``nu``; trees shaped like the parameters) into ``torch.optim.Adam``'s
@@ -40,13 +46,17 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "state_dict_from_jax_3d",
-           "load_adam_state_from_jax"]
+           "state_dict_from_jax_raft", "load_adam_state_from_jax"]
 
 _UPFLOW_RE = re.compile(r"upsampled_flow(\d)_to_(\d)")
 _UPFLOW_FLAX_RE = re.compile(r"^upflow(\d)to(\d)$")
 _BARE_DECONV_RE = re.compile(r"^(deconv\d|upfeat\d)$")
 # module paths of the 3-D models' flax trees
 _MODULE_3D_RE = re.compile(r"^((enc|dec|extra)\d+/conv|flow_head|conv\d+|fc)$")
+# RAFT's convolutions and its GroupNorms
+_CONV_RAFT_RE = re.compile(
+    r"^((fnet|cnet)/(stem|head|res\d[ab]/(conv[12]|proj))|menc[12]|gru/conv[zrq]|fh[12])$")
+_NORM_RAFT_RE = re.compile(r"^(fnet|cnet)/(stem_norm|res\d[ab]/norm[12])$")
 _BN_TO_TORCH = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                 "var": "running_var"}
 
@@ -154,31 +164,63 @@ def state_dict_from_jax(params, batch_stats=None,
     return out
 
 
+def _named_state_dict(params, place, what) -> Dict[str, torch.Tensor]:
+    """A flax tree whose port modules carry the flax module names:
+    ``place(module path, leaf, value)`` gives the torch leaf name and value,
+    or None for a leaf that has no counterpart, which raises."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        *mods, leaf = path
+        placed = place("/".join(mods), leaf, np.asarray(value, dtype=np.float32))
+        if placed is None:
+            raise ValueError(f"params leaf {'/'.join(path)} (shape "
+                             f"{np.shape(value)}) has no counterpart in {what}")
+        name, value = placed
+        out[".".join(mods + [name])] = torch.tensor(np.ascontiguousarray(value))
+    return out
+
+
+def _place_3d(module, leaf, value):
+    if not _MODULE_3D_RE.match(module) or leaf not in ("kernel", "bias"):
+        return None
+    if leaf == "bias":
+        return "bias", value
+    if value.ndim == 5:
+        return "weight", value.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
+    if value.ndim == 2 and module == "fc":
+        return "weight", value.T  # (in, out) -> (out, in)
+    return None
+
+
 def state_dict_from_jax_3d(params) -> Dict[str, torch.Tensor]:
     """tpureg ``params`` of a ``VoxelMorph3D`` or ``AffineNet3D`` (nested
     dicts of numpy arrays) → the port's state dict. Raises on a leaf it
     cannot place: a module path the models do not have, a leaf other than a
     kernel or a bias, or a kernel that is neither a 3-D convolution's nor a
     dense layer's."""
-    out: Dict[str, torch.Tensor] = {}
-    for path, value in _leaves(params):
-        *mods, leaf = path
-        value = np.asarray(value, dtype=np.float32)
-        module = "/".join(mods)
-        if not _MODULE_3D_RE.match(module) or leaf not in ("kernel", "bias"):
-            raise ValueError(f"params leaf {'/'.join(path)} has no counterpart "
-                             f"in the port's 3-D models")
-        if leaf == "kernel":
-            if value.ndim == 5:
-                value = value.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
-            elif value.ndim == 2 and module == "fc":
-                value = value.T  # (in, out) -> (out, in)
-            else:
-                raise ValueError(f"params leaf {'/'.join(path)}: a kernel of "
-                                 f"shape {value.shape} has no counterpart")
-        key = ".".join(mods + ["weight" if leaf == "kernel" else "bias"])
-        out[key] = torch.tensor(np.ascontiguousarray(value))
-    return out
+    return _named_state_dict(params, _place_3d, "the port's 3-D models")
+
+
+def _place_raft(module, leaf, value):
+    if _NORM_RAFT_RE.match(module) and leaf in ("scale", "bias") and value.ndim == 1:
+        return ("weight" if leaf == "scale" else "bias"), value
+    if not _CONV_RAFT_RE.match(module):
+        return None
+    if leaf == "bias" and value.ndim == 1:
+        return "bias", value
+    if leaf == "kernel" and value.ndim == 4:
+        return "weight", value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    return None
+
+
+def state_dict_from_jax_raft(params, prefix: Tuple[str, ...] = ("predictor",)
+                             ) -> Dict[str, torch.Tensor]:
+    """tpureg ``params`` of a ``RAFT`` under the module path ``prefix`` (the
+    registration head's predictor by default; nested dicts of numpy arrays)
+    → the port's state dict. Raises on a leaf it cannot place: a module path
+    RAFT does not have, or a leaf that is not its module's kernel, bias or
+    scale."""
+    return _named_state_dict(_subtree(params, prefix), _place_raft, "the port's RAFT")
 
 
 def load_adam_state_from_jax(optimizer: torch.optim.Optimizer, model, count,

@@ -21,7 +21,10 @@
 // L2, and each position's taps wait on its loads of px and py.
 //
 // Design: each thread takes kPer (2) consecutive positions of one batch row,
-// the batch on the grid's y axis; it loads px and py as one float2 each,
+// the batch on the grid's y axis (a batch of more than 65535 rows, the axis's
+// limit, is launched in chunks of at most that many rows on the same stream,
+// each chunk's pointers offset to its first row; a row's result does not
+// depend on the chunk it falls in); it loads px and py as one float2 each,
 // keeps the 2 x 4 tap gathers of a channel in flight together (through
 // L1/L2: a warp's taps sit on neighbouring rows for smooth flows) and stores
 // one float2 a channel. A grid-stride loop over the row keeps the grid at
@@ -48,6 +51,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPer = 2;  // positions a thread
+constexpr int kMaxGridY = 65535;  // batch rows a launch (the grid's y limit)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -163,22 +167,31 @@ int wave_blocks() {
 }
 
 template <typename T>
-void launch(const void* img, const float* x, const float* y, float* o, int B, int C, int H,
-            int W, int P, bool vec, cudaStream_t s) {
+cudaError_t launch(const void* img, const float* x, const float* y, float* o, int B, int C,
+                   int H, int W, int P, bool vec, cudaStream_t s) {
   const int groups = (P + kPer - 1) / kPer;
   const int per_row = (groups + kThreads - 1) / kThreads;
-  const int cap = (wave_blocks<T>() + B - 1) / B;  // about one wave
-  const dim3 grid((unsigned)(per_row < cap ? per_row : cap), (unsigned)B);
-  warp2d_fwd_kernel<T><<<grid, kThreads, 0, s>>>(static_cast<const T*>(img), x, y, o, C,
-                                                   H, W, P, vec);
+  const long long plane = (long long)H * W;
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = B - b0 < kMaxGridY ? B - b0 : kMaxGridY;
+    const int cap = (wave_blocks<T>() + nb - 1) / nb;  // about one wave
+    const dim3 grid((unsigned)(per_row < cap ? per_row : cap), (unsigned)nb);
+    warp2d_fwd_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(img) + (long long)b0 * C * plane, x + (long long)b0 * P,
+        y + (long long)b0 * P, o + (long long)b0 * C * P, C, H, W, P, vec);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 image. img: [B, C, H, W] contiguous, with
-// H * W < 2^31; px, py: [B, P] fp32 contiguous, P < 2^31; out: [B, C, P]
-// fp32 contiguous. Launches on `stream`; allocates nothing and does not
-// synchronise. Returns cudaGetLastError().
+// H * W < 2^31 and any B; px, py: [B, P] fp32 contiguous, P < 2^31; out:
+// [B, C, P] fp32 contiguous. Launches on `stream` (one launch for each 65535
+// batch rows); allocates nothing and does not synchronise. Returns the first
+// launch error, else cudaSuccess.
 extern "C" int tpureg_warp2d_fwd(const void* img, const void* px, const void* py, void* out,
                                  int dtype, int B, int C, int H, int W, long long P,
                                  void* stream) {
@@ -186,7 +199,6 @@ extern "C" int tpureg_warp2d_fwd(const void* img, const void* px, const void* py
   if ((long long)H * W >= 2147483648LL || P >= 2147483648LL - kPer)
     return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
-  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fx = static_cast<const float*>(px);
   const float* fy = static_cast<const float*>(py);
@@ -196,12 +208,7 @@ extern "C" int tpureg_warp2d_fwd(const void* img, const void* px, const void* py
   const bool vec = P % kPer == 0 && reinterpret_cast<uintptr_t>(fx) % align == 0 &&
                    reinterpret_cast<uintptr_t>(fy) % align == 0 &&
                    reinterpret_cast<uintptr_t>(o) % align == 0;
-  if (dtype == 0) {
-    launch<float>(img, fx, fy, o, B, C, H, W, (int)P, vec, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(img, fx, fy, o, B, C, H, W, (int)P, vec, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0) return (int)launch<float>(img, fx, fy, o, B, C, H, W, (int)P, vec, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(img, fx, fy, o, B, C, H, W, (int)P, vec, s);
+  return (int)cudaErrorInvalidValue;
 }

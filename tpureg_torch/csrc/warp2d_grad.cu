@@ -96,7 +96,9 @@
 // - The tap geometry (base pixel and the four weights) of the lane's kRW
 //   positions is formed once and kept in registers for the block's
 //   channels. Blocks split the channels when the positions alone give too
-//   few blocks to fill the card (C = 32-128 at PWC's small maps).
+//   few blocks to fill the card (C = 32-128 at PWC's small maps); the
+//   channel groups ride on the grid's z axis, so there may be at most 65535
+//   of them (the entry point refuses more; no path comes near).
 // - When P = H * W the positions are taken to lie on the image's grid in
 //   raster order; otherwise lanes take consecutive positions in rows of 32.
 //   Merging only ever joins products bound for the same pixel, so any
@@ -114,6 +116,10 @@ namespace {
 // one; the host aims for kDposWarpsPerSM warps a streaming multiprocessor
 // before it stops splitting C
 constexpr int kDposMaxWarps = 32, kDposU = 4, kDposWarpsPerSM = 16;
+// batch rows a launch (the grid's y limit): a larger batch is launched in
+// chunks of rows on the same stream, each chunk's pointers offset to its
+// first row; a row's result does not depend on the chunk it falls in
+constexpr int kMaxGridY = 65535;
 
 // an image element as raw bits, widened to fp32 after the loads
 template <typename T>
@@ -372,9 +378,10 @@ int sm_count() {
 }  // namespace
 
 // K4. dtype: 0 = float32, 1 = bfloat16 image. img: [B, C, H, W] contiguous,
-// with H * W < 2^31; px, py: [B, P] fp32 contiguous, P < 2^31; g: [B, C, P]
-// fp32 contiguous; dpx, dpy: [B, P] fp32 contiguous. Launches on `stream`;
-// allocates nothing and does not synchronise. Returns cudaGetLastError().
+// with H * W < 2^31 and any B; px, py: [B, P] fp32 contiguous, P < 2^31; g:
+// [B, C, P] fp32 contiguous; dpx, dpy: [B, P] fp32 contiguous. Launches on
+// `stream`, one launch for each kMaxGridY batch rows; allocates nothing and
+// does not synchronise. Returns the first launch error, else cudaSuccess.
 extern "C" int tpureg_warp2d_dpos(const void* img, const void* px, const void* py,
                                   const void* g, void* dpx, void* dpy, int dtype, int B,
                                   int C, int H, int W, long long P, void* stream) {
@@ -383,53 +390,64 @@ extern "C" int tpureg_warp2d_dpos(const void* img, const void* px, const void* p
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
-  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
-  // split C over more warps while the grid is short of kDposWarpsPerSM
-  // warps an SM; then fill a block up to 8 warps with position groups
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long groups = (P + 31) / 32;
   const long long target = (long long)kDposWarpsPerSM * sm_count();
-  int nwc = 1;
-  while (2 * nwc <= kDposMaxWarps && 2 * nwc <= C && groups * B * nwc < target) nwc *= 2;
-  const int npg = nwc < 8 ? 8 / nwc : 1;
-  const dim3 grid((unsigned)((groups + npg - 1) / npg), (unsigned)B);
-  const int threads = nwc * npg * 32;
-  // a warp of at most two channels in an 8-warp block takes them one at a
-  // time, in the kernel that fills an SM with 8 blocks
-  const bool one = nwc <= 8 && (C + nwc - 1) / nwc <= 2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fx = static_cast<const float*>(px);
-  const float* fy = static_cast<const float*>(py);
-  const float* fg = static_cast<const float*>(g);
-  float* ox = static_cast<float*>(dpx);
-  float* oy = static_cast<float*>(dpy);
-  const int p32 = (int)P;
-  if (dtype == 0) {
-    const float* im = static_cast<const float*>(img);
-    if (one)
-      warp2d_dpos_kernel<float, 1><<<grid, threads, 0, s>>>(im, fx, fy, fg, ox, oy, C, H, W,
-                                                              p32, nwc, npg);
-    else
-      warp2d_dpos_kernel<float, kDposU><<<grid, threads, 0, s>>>(im, fx, fy, fg, ox, oy, C,
-                                                                   H, W, p32, nwc, npg);
-  } else {
-    const __nv_bfloat16* im = static_cast<const __nv_bfloat16*>(img);
-    if (one)
-      warp2d_dpos_kernel<__nv_bfloat16, 1><<<grid, threads, 0, s>>>(
-          im, fx, fy, fg, ox, oy, C, H, W, p32, nwc, npg);
-    else
-      warp2d_dpos_kernel<__nv_bfloat16, kDposU><<<grid, threads, 0, s>>>(
-          im, fx, fy, fg, ox, oy, C, H, W, p32, nwc, npg);
+  const long long plane = (long long)H * W;
+  const size_t elem = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = B - b0 < kMaxGridY ? B - b0 : kMaxGridY;
+    // split C over more warps while the grid is short of kDposWarpsPerSM
+    // warps an SM; then fill a block up to 8 warps with position groups
+    int nwc = 1;
+    while (2 * nwc <= kDposMaxWarps && 2 * nwc <= C && groups * nb * nwc < target) nwc *= 2;
+    const int npg = nwc < 8 ? 8 / nwc : 1;
+    const dim3 grid((unsigned)((groups + npg - 1) / npg), (unsigned)nb);
+    const int threads = nwc * npg * 32;
+    // a warp of at most two channels in an 8-warp block takes them one at a
+    // time, in the kernel that fills an SM with 8 blocks
+    const bool one = nwc <= 8 && (C + nwc - 1) / nwc <= 2;
+    const long long rows = (long long)b0 * P, cols = (long long)b0 * C;
+    const void* im = static_cast<const char*>(img) + cols * plane * elem;
+    const float* fx = static_cast<const float*>(px) + rows;
+    const float* fy = static_cast<const float*>(py) + rows;
+    const float* fg = static_cast<const float*>(g) + cols * P;
+    float* ox = static_cast<float*>(dpx) + rows;
+    float* oy = static_cast<float*>(dpy) + rows;
+    const int p32 = (int)P;
+    if (dtype == 0) {
+      const float* t = static_cast<const float*>(im);
+      if (one)
+        warp2d_dpos_kernel<float, 1><<<grid, threads, 0, s>>>(t, fx, fy, fg, ox, oy, C, H, W,
+                                                                p32, nwc, npg);
+      else
+        warp2d_dpos_kernel<float, kDposU><<<grid, threads, 0, s>>>(t, fx, fy, fg, ox, oy, C,
+                                                                     H, W, p32, nwc, npg);
+    } else {
+      const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(im);
+      if (one)
+        warp2d_dpos_kernel<__nv_bfloat16, 1><<<grid, threads, 0, s>>>(
+            t, fx, fy, fg, ox, oy, C, H, W, p32, nwc, npg);
+      else
+        warp2d_dpos_kernel<__nv_bfloat16, kDposU><<<grid, threads, 0, s>>>(
+            t, fx, fy, fg, ox, oy, C, H, W, p32, nwc, npg);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 // K5. px, py: [B, P] fp32; g: [B, C, P] fp32; dimg: [B, C, H, W] fp32,
-// zeroed by the caller; all contiguous. When P = H * W the positions are
-// taken to lie on the image's grid in raster order (every 2-D path builds
-// them from the pixel grid) and a warp takes 32 neighbours of a row;
+// zeroed by the caller; all contiguous; any B. When P = H * W the positions
+// are taken to lie on the image's grid in raster order (every 2-D path
+// builds them from the pixel grid) and a warp takes 32 neighbours of a row;
 // otherwise 32 consecutive positions. Either way any positions give the
-// right sums. Launches on `stream`; allocates nothing and does not
-// synchronise. Returns cudaGetLastError().
+// right sums. The channel groups ride on the grid's z axis, so at most 65535
+// of them; no path comes near (PWC's 128 channels split into at most 128).
+// Launches on `stream`, one launch for each kMaxGridY batch rows; allocates
+// nothing and does not synchronise. Returns the first launch error, else
+// cudaSuccess.
 extern "C" int tpureg_warp2d_dimg(const void* px, const void* py, const void* g,
                                   void* dimg, int B, int C, int H, int W, long long P,
                                   void* stream) {
@@ -441,17 +459,24 @@ extern "C" int tpureg_warp2d_dimg(const void* px, const void* py, const void* g,
   const long long nxt = (gw + 31) / 32;
   const long long nyt = (gh + kDimgWarps * kRW - 1) / (kDimgWarps * kRW);
   const long long blocks = nxt * nyt;
-  // split the channels into groups when the positions give too few blocks
-  long long groups = (kDimgBlocksTarget + blocks * B - 1) / (blocks * B);
-  if (groups > C) groups = C;
-  const int cg = (int)((C + groups - 1) / groups);
-  groups = (C + cg - 1) / cg;
-  if (blocks > 2147483647LL || gh > 2147483647LL || B > 65535 || groups > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks, (unsigned)B, (unsigned)groups);
-  warp2d_dimg_kernel<<<grid, kDimgWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(px), static_cast<const float*>(py),
-      static_cast<const float*>(g), static_cast<float*>(dimg), C, H, W, P, (int)gh,
-      (int)gw, (int)nxt, cg);
-  return (int)cudaGetLastError();
+  if (blocks > 2147483647LL || gh > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  const long long plane = (long long)H * W;
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = B - b0 < kMaxGridY ? B - b0 : kMaxGridY;
+    // split the channels into groups when the positions give too few blocks
+    long long groups = (kDimgBlocksTarget + blocks * nb - 1) / (blocks * nb);
+    if (groups > C) groups = C;
+    const int cg = (int)((C + groups - 1) / groups);
+    groups = (C + cg - 1) / cg;
+    if (groups > 65535) return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)blocks, (unsigned)nb, (unsigned)groups);
+    const long long rows = (long long)b0 * P, cols = (long long)b0 * C;
+    warp2d_dimg_kernel<<<grid, kDimgWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(px) + rows, static_cast<const float*>(py) + rows,
+        static_cast<const float*>(g) + cols * P, static_cast<float*>(dimg) + cols * plane,
+        C, H, W, P, (int)gh, (int)gw, (int)nxt, cg);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }

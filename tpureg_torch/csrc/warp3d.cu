@@ -44,20 +44,20 @@
 // atomic unit: one global atomic per in-volume corner and channel, 69 M at a
 // composition, each its own L2 operation at about 140 G/s.
 //
-// Design of K6a and K6b: one thread per (b, position), the batch on the
-// grid's y axis; positions, cotangents and outputs are read and written
-// coalesced; the 8 corners are gathered from global memory through L1/L2
-// (one 176x256x256 fp32 volume is 46 MB and fits the 50 MB L2; registration
-// flows are smooth, so neighbouring threads read neighbouring voxels); the
-// loop over C reuses the corner indices and weights. K6b gathers the corners
-// that K6a gathered in the forward once more rather than save bases for the
-// backward: three [B, C, P] bases would cost 12 C bytes a position to write
-// and as much to read back, where the second gathers mostly hit L2. The TPU
-// kernel's VMEM slab, data-adaptive (z, y) window, one-hot MXU column selects
-// with the bf16 hi/lo split and the traced guard with its gather fallback
-// (warp3d_pallas.py:142-180, :215-227, :267-288, :335-372) exist because the
-// TPU has no fast gather; none is needed here, and the kernels take every
-// shape.
+// Design of K6a and K6b: one thread per (b, position), the batch on the grid's
+// y axis (in launches of at most 65535 rows); positions, cotangents and outputs
+// are read and written coalesced; the 8 corners are gathered from global memory
+// through L1/L2 (one 176x256x256 fp32 volume is 46 MB and fits the 50 MB L2;
+// registration flows are smooth, so neighbouring threads read neighbouring
+// voxels); the loop over C reuses the corner indices and weights. K6b gathers
+// the corners that K6a gathered in the forward once more rather than save bases
+// for the backward: three [B, C, P] bases would cost 12 C bytes a position to
+// write and as much to read back, where the second gathers mostly hit L2. The
+// TPU kernel's VMEM slab, data-adaptive (z, y) window, one-hot MXU column
+// selects with the bf16 hi/lo split and the traced guard with its gather
+// fallback (warp3d_pallas.py:142-180, :215-227, :267-288, :335-372) exist
+// because the TPU has no fast gather; none is needed here, and the kernels take
+// every shape.
 //
 // Design of K6c: fewer atomics, merged in registers and, where positions
 // scatter, privatised in shared memory. On every 3-D path the positions are
@@ -501,13 +501,19 @@ bool bad_shape(int B, int C, int D, int H, int W, long long P) {
   return B <= 0 || C <= 0 || D <= 0 || H <= 0 || W <= 0 || P < 0;
 }
 
-bool bad_grid(int B, long long P) {
-  return (P + kThreads - 1) / kThreads > 2147483647LL || B > 65535;
-}
+// batch rows a launch (the grid's y limit): a larger batch is launched in
+// chunks of rows on the same stream, each chunk's pointers offset to its
+// first row; a row's result does not depend on the chunk it falls in
+constexpr int kMaxGridY = 65535;
+
+bool bad_grid(long long P) { return (P + kThreads - 1) / kThreads > 2147483647LL; }
 
 dim3 grid_of(int B, long long P) {
   return dim3((unsigned)((P + kThreads - 1) / kThreads), (unsigned)B);
 }
+
+// rows of the chunk that starts at batch row b0
+int chunk_rows(int B, int b0) { return B - b0 < kMaxGridY ? B - b0 : kMaxGridY; }
 
 template <typename T, typename I>
 void launch_dpos(const void* vol, const float* x, const float* y, const float* z,
@@ -520,100 +526,121 @@ void launch_dpos(const void* vol, const float* x, const float* y, const float* z
 }  // namespace
 
 // K6a. dtype: 0 = float32, 1 = bfloat16 volume. vol: [B, C, D, H, W]
-// contiguous; px, py, pz: [B, P] fp32 contiguous; out: [B, C, P] fp32
-// contiguous. Launches on `stream`; allocates nothing and does not
-// synchronise. Returns cudaGetLastError().
+// contiguous, any B; px, py, pz: [B, P] fp32 contiguous; out: [B, C, P] fp32
+// contiguous. Launches on `stream`, one launch for each kMaxGridY batch rows;
+// allocates nothing and does not synchronise. Returns the first launch
+// error, else cudaSuccess.
 extern "C" int tpureg_warp3d_fwd(const void* vol, const void* px, const void* py,
                                  const void* pz, void* out, int dtype, int B, int C, int D,
                                  int H, int W, long long P, void* stream) {
   if (bad_shape(B, C, D, H, W, P)) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
-  if (bad_grid(B, P)) return (int)cudaErrorInvalidConfiguration;
+  if (bad_grid(P)) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* x = static_cast<const float*>(px);
-  const float* y = static_cast<const float*>(py);
-  const float* z = static_cast<const float*>(pz);
-  float* o = static_cast<float*>(out);
-  if (dtype == 0) {
-    warp3d_fwd_kernel<float><<<grid_of(B, P), kThreads, 0, s>>>(
-        static_cast<const float*>(vol), x, y, z, o, C, D, H, W, P);
-  } else if (dtype == 1) {
-    warp3d_fwd_kernel<__nv_bfloat16><<<grid_of(B, P), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(vol), x, y, z, o, C, D, H, W, P);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  const long long volume = (long long)D * H * W;
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = chunk_rows(B, b0);
+    const long long rows = (long long)b0 * P, cols = (long long)b0 * C;
+    const float* x = static_cast<const float*>(px) + rows;
+    const float* y = static_cast<const float*>(py) + rows;
+    const float* z = static_cast<const float*>(pz) + rows;
+    float* o = static_cast<float*>(out) + cols * P;
+    if (dtype == 0) {
+      warp3d_fwd_kernel<float><<<grid_of(nb, P), kThreads, 0, s>>>(
+          static_cast<const float*>(vol) + cols * volume, x, y, z, o, C, D, H, W, P);
+    } else {
+      warp3d_fwd_kernel<__nv_bfloat16><<<grid_of(nb, P), kThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(vol) + cols * volume, x, y, z, o, C, D, H, W,
+          P);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
-// K6b. vol: [B, C, D, H, W] (dtype as K6a's); px, py, pz: [B, P] fp32;
-// g: [B, C, P] fp32; dpx, dpy, dpz: [B, P] fp32; all contiguous. In-volume
-// offsets are 32-bit when D * H * W < 2^31, else 64-bit. Launches on
-// `stream`; allocates nothing and does not synchronise. Returns
-// cudaGetLastError().
+// K6b. vol: [B, C, D, H, W] (dtype as K6a's), any B; px, py, pz: [B, P]
+// fp32; g: [B, C, P] fp32; dpx, dpy, dpz: [B, P] fp32; all contiguous.
+// In-volume offsets are 32-bit when D * H * W < 2^31, else 64-bit. Launches
+// on `stream`, one launch for each kMaxGridY batch rows; allocates nothing
+// and does not synchronise. Returns the first launch error, else
+// cudaSuccess.
 extern "C" int tpureg_warp3d_dpos(const void* vol, const void* px, const void* py,
                                   const void* pz, const void* g, void* dpx, void* dpy,
                                   void* dpz, int dtype, int B, int C, int D, int H, int W,
                                   long long P, void* stream) {
   if (bad_shape(B, C, D, H, W, P)) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
-  if (bad_grid(B, P)) return (int)cudaErrorInvalidConfiguration;
+  if (bad_grid(P)) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* x = static_cast<const float*>(px);
-  const float* y = static_cast<const float*>(py);
-  const float* z = static_cast<const float*>(pz);
-  const float* gr = static_cast<const float*>(g);
-  float* ox = static_cast<float*>(dpx);
-  float* oy = static_cast<float*>(dpy);
-  float* oz = static_cast<float*>(dpz);
-  const bool narrow = (long long)D * H * W < 2147483648LL;
-  if (dtype == 0 && narrow) {
-    launch_dpos<float, int>(vol, x, y, z, gr, ox, oy, oz, B, C, D, H, W, P, s);
-  } else if (dtype == 0) {
-    launch_dpos<float, long long>(vol, x, y, z, gr, ox, oy, oz, B, C, D, H, W, P, s);
-  } else if (dtype == 1 && narrow) {
-    launch_dpos<__nv_bfloat16, int>(vol, x, y, z, gr, ox, oy, oz, B, C, D, H, W, P, s);
-  } else if (dtype == 1) {
-    launch_dpos<__nv_bfloat16, long long>(vol, x, y, z, gr, ox, oy, oz, B, C, D, H, W, P,
-                                          s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  const long long volume = (long long)D * H * W;
+  const bool narrow = volume < 2147483648LL;
+  const size_t elem = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = chunk_rows(B, b0);
+    const long long rows = (long long)b0 * P, cols = (long long)b0 * C;
+    const void* v = static_cast<const char*>(vol) + cols * volume * elem;
+    const float* x = static_cast<const float*>(px) + rows;
+    const float* y = static_cast<const float*>(py) + rows;
+    const float* z = static_cast<const float*>(pz) + rows;
+    const float* gr = static_cast<const float*>(g) + cols * P;
+    float* ox = static_cast<float*>(dpx) + rows;
+    float* oy = static_cast<float*>(dpy) + rows;
+    float* oz = static_cast<float*>(dpz) + rows;
+    if (dtype == 0 && narrow) {
+      launch_dpos<float, int>(v, x, y, z, gr, ox, oy, oz, nb, C, D, H, W, P, s);
+    } else if (dtype == 0) {
+      launch_dpos<float, long long>(v, x, y, z, gr, ox, oy, oz, nb, C, D, H, W, P, s);
+    } else if (narrow) {
+      launch_dpos<__nv_bfloat16, int>(v, x, y, z, gr, ox, oy, oz, nb, C, D, H, W, P, s);
+    } else {
+      launch_dpos<__nv_bfloat16, long long>(v, x, y, z, gr, ox, oy, oz, nb, C, D, H, W, P,
+                                            s);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 // K6c. px, py, pz: [B, P] fp32; g: [B, C, P] fp32; dvol: [B, C, D, H, W]
-// fp32, zeroed by the caller; all contiguous. When P = D * H * W the
+// fp32, zeroed by the caller; all contiguous; any B. When P = D * H * W the
 // positions are taken to lie on the volume's grid in raster order (every
 // 3-D path builds them from voxel_grid) and blocks take bricks of that
 // grid; otherwise bricks of 2,048 consecutive positions. Either way any
-// positions give the right sums. Launches on `stream`; allocates nothing and
-// does not synchronise. Returns cudaGetLastError().
+// positions give the right sums. Launches on `stream`, one launch for each
+// kMaxGridY batch rows; allocates nothing and does not synchronise. Returns
+// the first launch error, else cudaSuccess.
 extern "C" int tpureg_warp3d_dvol(const void* px, const void* py, const void* pz,
                                   const void* g, void* dvol, int B, int C, int D, int H,
                                   int W, long long P, void* stream) {
   if (bad_shape(B, C, D, H, W, P)) return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
-  const bool on_grid = P == (long long)D * H * W;
+  const long long volume = (long long)D * H * W;
+  const bool on_grid = P == volume;
   const long long gd = on_grid ? D : (P + kBX * kBY - 1) / (kBX * kBY);
   const int gh = on_grid ? H : kBY, gw = on_grid ? W : kBX;
   const long long blocks =
       ((gd + kBZ - 1) / kBZ) * ((gh + kBY - 1) / kBY) * ((gw + kBX - 1) / kBX);
-  if (gd > INT_MAX || blocks > INT_MAX || B > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks, (unsigned)B);
+  if (gd > INT_MAX || blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* x = static_cast<const float*>(px);
-  const float* y = static_cast<const float*>(py);
-  const float* z = static_cast<const float*>(pz);
-  const float* gr = static_cast<const float*>(g);
-  float* o = static_cast<float*>(dvol);
   // every row of a window starts on a 16-byte boundary when W % 4 == 0
   auto kernel = W % 4 == 0 ? warp3d_dvol_kernel<float4> : warp3d_dvol_kernel<float>;
-  const cudaError_t e = cudaFuncSetAttribute(
+  const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDvolSmem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, kDvolSmem, s>>>(x, y, z, gr, o, C, D, H, W, P, (int)gd, gh, gw,
-                                           on_grid);
-  return (int)cudaGetLastError();
+  if (attr != cudaSuccess) return (int)attr;
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = chunk_rows(B, b0);
+    const long long rows = (long long)b0 * P, cols = (long long)b0 * C;
+    const dim3 grid((unsigned)blocks, (unsigned)nb);
+    kernel<<<grid, kThreads, kDvolSmem, s>>>(
+        static_cast<const float*>(px) + rows, static_cast<const float*>(py) + rows,
+        static_cast<const float*>(pz) + rows, static_cast<const float*>(g) + cols * P,
+        static_cast<float*>(dvol) + cols * volume, C, D, H, W, P, (int)gd, gh, gw, on_grid);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }

@@ -2,8 +2,9 @@
 (reference loss.py, constants kept):
 
 - ``charbonnier(x) = (x² + ε²)^α`` with α = 0.25, ε = 1e-9;
-- per-scale weights ``0.05 · (1..n)``, ascending, so the coarsest flow of a
-  finest-first list carries the largest weight;
+- per-scale weights ``0.05 · (1..n)``, ascending by default, so the
+  coarsest flow of a finest-first list carries the largest weight
+  (``weight_order="descending"`` reverses them);
 - λ = 0.5 (smoothness), γ = 100 (photometric), ζ = 100 (correlation), each
   scaled by 1/n;
 - the fixed image is resized down to each flow's scale (bilinear,
@@ -84,16 +85,24 @@ def OFEloss(
     lamb_da: float = 0.5,
     gamma: float = 100.0,
     zeta: float = 100.0,
+    weight_order: str = "ascending",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Multi-scale OFE loss → (photo, corr, smooth, total).
 
     ``flows[i]``: [B, 2, h_i, w_i] finest first; ``warpeds[i]``: the moving
-    image warped at that scale; ``fixed``: [B, 1, H, W]. (tpureg's
-    ``weight_order="descending"`` serves RAFT and comes with it.)
+    image warped at that scale; ``fixed``: [B, 1, H, W]. ``weight_order``:
+    "ascending" (the reference's) or "descending", which gives the first
+    (finest, or RAFT's most refined) entry the largest weight; the default
+    loss of every model, RAFT's included, is ascending.
     """
+    if weight_order not in ("ascending", "descending"):
+        raise ValueError(f"weight_order must be 'ascending'|'descending', "
+                         f"got {weight_order!r}")
     n = len(flows)
     weights = 0.05 * torch.arange(1, n + 1, dtype=torch.float32,
                                   device=fixed.device)
+    if weight_order == "descending":
+        weights = weights.flip(0)
     p_loss = 0.0
     c_loss = 0.0
     s_loss = 0.0

@@ -66,7 +66,8 @@ def outputs_to_nhwc(outputs):
 
 
 class OpticalFlowReg(nn.Module):
-    """Registration head around a registry predictor (``"flownet2"``)."""
+    """Registration head around a registry predictor (``"flownet2"``, the
+    ``"pwc"`` names, ``"raft"``, ``"raft-reg"``)."""
 
     def __init__(self, conv_predictor: str = "flownet2", use_bn: bool = True,
                  num_seg_labels: int = 3,
