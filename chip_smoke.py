@@ -89,6 +89,23 @@
    raft-reg on phase 8's volumes, resumes and saves best weights under
    RAFT, which the inference CLI loads in ``--mode real`` and ``--mode
    synthetic``;
+8j. FlowNetS in the Pinard style, tpureg's default predictor (38,667,792
+   parameters with BatchNorm): a seeded head runs the eval step (with
+   segmentations) and the train step at 256², batch 8, in fp32 and bf16: 4
+   K3 launches an eval step (the image at flow0 and flow2, the segmentation,
+   the grid); 7 K3 and 6 K4 a train step; the loss falls over 5 steps; at
+   batch 1 the eval flows and losses and the fp32 gradient (with cuDNN; the
+   distance without it printed beside) are held against the CPU's plain
+   path; the flow-supervised step on the phantom gate's pairs in both
+   units (7 K3, no K4): the EPE falls over 5 steps, and at batch 1 its
+   metrics against the CPU's and its fp32 gradient against the CPU's fp64
+   one (1e-2 over the model, 3e-2 a tensor); the rest of the 2-D zoo
+   (flownets-full, flownetc, flownetsd and the cascade's sub-variants)
+   through the head in eval mode at batch 1 against the CPU, with their
+   launches, and FlowNetCPinard alone on a 6-channel pair in both modes;
+   the training CLI trains flownets on phase 8's volumes, resumes and saves
+   best weights under FlowNetS, which the inference CLI loads in ``--mode
+   real`` and ``--mode synthetic``;
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 (d/dgrid) and K5 (d/dinput),
@@ -106,10 +123,10 @@
    FlowNet2's stn positions and SyN's composition; K3, K4 and K5 at
    raft-reg's lookups (levels 0 and 3 at batch 8, level 0 at batch 16) and
    its feature warp, fp32 and bf16),
-   the eval and train steps of FlowNet2, pwc-reg and raft-reg at batch 8 and the 3-D
+   the eval and train steps of FlowNet2, pwc-reg, raft-reg and FlowNetS at batch 8 and the 3-D
    train steps at batch 2, whole 2-D and 3-D registrations, peak memory;
 10. a torch.profiler breakdown of one eval, one train and one step of each
-    3-D stage, of pwc-reg's and raft-reg's eval and train steps, and of one
+    3-D stage, of pwc-reg's, raft-reg's and FlowNetS's eval and train steps, and of one
     2-D and one 3-D registration, by kernel group, with the device's idle
     share.
 
@@ -182,10 +199,12 @@ from tpureg_torch.train import (
     make_affine_train_step,
     make_deform3d_train_step,
     make_eval_step,
+    make_flow_supervised_step,
     make_train_step,
     save_best_weights,
     set_fp32_numerics,
 )
+from torch_quality_phantom import make_pairs as phantom_pairs
 
 DEV = torch.device("cuda")
 SIZE, BATCH = 256, 8
@@ -263,6 +282,30 @@ RAFT_REG_TRAIN_LAUNCHES = launches_of(warp2d=31, warp2d_dpos=25, warp2d_dimg=25)
 # lookups and the 5 head warps; K5 for the 20 lookups
 RAFT_EVAL_LAUNCHES = launches_of(warp2d=27)
 RAFT_TRAIN_LAUNCHES = launches_of(warp2d=26, warp2d_dpos=21, warp2d_dimg=20)
+# FlowNetS (pinard), tpureg's default predictor: its eval step (with segs)
+# warps the moving image at flow0 and flow2, the segmentation and the grid
+FLOWNETS_EVAL_LAUNCHES = launches_of(warp2d=4)
+# its train step: K3 for the 6 flows' image warps and the grid; K4 for the
+# 6 image warps the loss reads (the grid is not in the loss); the moving
+# image and the grid are inputs, so no K5
+FLOWNETS_TRAIN_LAUNCHES = launches_of(warp2d=7, warp2d_dpos=6)
+# the flow-supervised step samples as the train step does, but its loss
+# reads only the flows, so no warp is differentiated
+SUPERVISED_LAUNCHES = launches_of(warp2d=7)
+# the rest of the 2-D zoo through the head, eval mode with segs: K1 once in
+# each FlowNetC; K3 for each of the head's flows' image warps, the
+# segmentation and the grid, and for the cascade prefix's "pixel" warps
+# (one an S block)
+ZOO_EVAL_LAUNCHES = {
+    "flownets-full": launches_of(warp2d=9),
+    "flownetc": launches_of(correlation=1, warp2d=3),
+    "flownet2-c": launches_of(correlation=1, warp2d=3),
+    "flownet2-s": launches_of(warp2d=3),
+    "flownet2-sd": launches_of(warp2d=3),
+    "flownetsd": launches_of(warp2d=3),
+    "flownet2-cs": launches_of(correlation=1, warp2d=4),
+    "flownet2-css": launches_of(correlation=1, warp2d=5),
+}
 # register_syn3d, (30, 20, 10): each of the 60 iterations runs 6
 # compositions (K6a; K6b and K6c backward) and the moving volume's warp
 # (K6a; K6b); the final exponential and warp run K6a only (6 + 1)
@@ -1661,26 +1704,7 @@ def pwc_path(pair_dirs, train_dirs):
         train_cli_and_resume("pwc-reg", train_dirs, work)
         require(os.path.isfile(best_weight_path(work, "PWCDCNet")),
                 "the training CLI did not save pwc-reg's best weights under PWCDCNet")
-        reset_counts()
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            results = cli_inference.main([
-                "--mode", "real", "--model", "pwc-reg", "--batch_size", "1",
-                "--fiximg_dir", pair_dirs["fiximg"], "--fixseg_dir", pair_dirs["fixseg"],
-                "--movimg_dir", pair_dirs["movimg"], "--movseg_dir", pair_dirs["movseg"],
-                "--workdir", work, "--logdir", os.path.join(work, "log_eval"),
-                "--max_samples", "4"], device="cuda")
-        torch.cuda.synchronize()
-        got = counts()
-        print(f"  pwc-reg inference --mode real on the best weights, 4 pairs: "
-              f"launches {got}")
-        for line in cli_summary(out.getvalue()):
-            print(f"    {line}")
-        require("loaded best weights ({" in out.getvalue()
-                and got == {k: 4 * n for k, n in PWC_EVAL_LAUNCHES.items()},
-                "pwc-reg inference --mode real: weights or launch counts")
-        require(all(np.isfinite(v) for v in results.values()),
-                "pwc-reg inference --mode real: a metric is not finite")
+        real_eval_cli("pwc-reg", pair_dirs, work, PWC_EVAL_LAUNCHES)
         got = synthetic_eval_cli("pwc-reg", train_dirs, work)
         require(got["correlation"] == 2 * 5 and got["correlation_bwd"] == 0
                 and got["warp2d_dpos"] == 0 and got["warp2d_dimg"] == 0,
@@ -1805,31 +1829,245 @@ def raft_path(pair_dirs, train_dirs):
         train_cli_and_resume("raft-reg", train_dirs, work)
         require(os.path.isfile(best_weight_path(work, "RAFT")),
                 "the training CLI did not save raft-reg's best weights under RAFT")
-        reset_counts()
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            results = cli_inference.main([
-                "--mode", "real", "--model", "raft-reg", "--batch_size", "1",
-                "--fiximg_dir", pair_dirs["fiximg"], "--fixseg_dir", pair_dirs["fixseg"],
-                "--movimg_dir", pair_dirs["movimg"], "--movseg_dir", pair_dirs["movseg"],
-                "--workdir", work, "--logdir", os.path.join(work, "log_eval"),
-                "--max_samples", "4"], device="cuda")
-        torch.cuda.synchronize()
-        got = counts()
-        print(f"  raft-reg inference --mode real on the best weights, 4 pairs: "
-              f"launches {got}")
-        for line in cli_summary(out.getvalue()):
-            print(f"    {line}")
-        require("loaded best weights ({" in out.getvalue()
-                and got == {k: 4 * n for k, n in RAFT_REG_EVAL_LAUNCHES.items()},
-                "raft-reg inference --mode real: weights or launch counts")
-        require(all(np.isfinite(v) for v in results.values()),
-                "raft-reg inference --mode real: a metric is not finite")
+        real_eval_cli("raft-reg", pair_dirs, work, RAFT_REG_EVAL_LAUNCHES)
         got = synthetic_eval_cli("raft-reg", train_dirs, work)
         # 2 batches of 4: each eval step's launches and one K3 in the
         # batch's elastic synthesis
         require(got == launches_of(warp2d=2 * (RAFT_REG_EVAL_LAUNCHES["warp2d"] + 1)),
                 "raft-reg inference --mode synthetic: launch counts")
+    return ({"eval": eval_launches, "train": train_launches},
+            {"eval": eval_steps, "train": train_steps}, imgs, segs)
+
+
+def real_eval_cli(model, pair_dirs, work, launches):
+    """The inference CLI in ``--mode real`` on the best weights under
+    ``work``, 4 pairs at batch 1: each pair's eval step launches
+    ``launches``; every metric finite."""
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = cli_inference.main([
+            "--mode", "real", "--model", model, "--batch_size", "1",
+            "--fiximg_dir", pair_dirs["fiximg"], "--fixseg_dir", pair_dirs["fixseg"],
+            "--movimg_dir", pair_dirs["movimg"], "--movseg_dir", pair_dirs["movseg"],
+            "--workdir", work, "--logdir", os.path.join(work, "log_eval"),
+            "--max_samples", "4"], device="cuda")
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"  {model} inference --mode real on the best weights, 4 pairs: "
+          f"launches {got}")
+    for line in cli_summary(out.getvalue()):
+        print(f"    {line}")
+    require("loaded best weights ({" in out.getvalue()
+            and got == {k: 4 * n for k, n in launches.items()},
+            f"{model} inference --mode real: weights or launch counts")
+    require(all(np.isfinite(v) for v in results.values()),
+            f"{model} inference --mode real: a metric is not finite")
+
+
+def supervised_gradients(model, units, imgs, disp):
+    """({"epe", "epe0"}, {name: gradient}) of one flow-supervised step of
+    ``model`` on ``imgs``, ``disp``, through the public step with a zero
+    learning rate."""
+    state = create_train_state(model, learning_rate=0.0)
+    metrics = make_flow_supervised_step(state, flow_units=units)(imgs, disp)
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()})
+
+
+def hold_fp32_gradients(label, card, cpu32, cpu64):
+    """The card's fp32 gradient against the CPU's fp64 one by the CPU
+    tests' fp32 rule (tests/test_torch_train.py): relative L2 at most 1e-2
+    over the model and 3e-2 in every tensor; the CPU's fp32 distance is
+    printed beside it."""
+    got, ref = gradient_distance(card, cpu64), gradient_distance(cpu32, cpu64)
+    for name, (whole, median, worst) in (("card fp32", got), ("CPU fp32", ref)):
+        print(f"  {label} batch 1 gradients, {name} vs CPU fp64, relative L2: whole "
+              f"model {whole:.3g}, per tensor median {median:.3g}, worst {worst:.3g}")
+    require(got[0] <= 1e-2 and got[2] <= 3e-2,
+            f"{label}: the card's fp32 gradients are further from fp64 than 1e-2 "
+            "over the model or 3e-2 in a tensor")
+
+
+def flownets_path(pair_dirs, train_dirs):
+    phase("8j. FlowNetS (pinard): eval and train steps at 256², batch 8, fp32 and "
+          "bf16; the flow-supervised step; card against CPU; the rest of the 2-D "
+          "zoo; both 2-D CLIs with flownets")
+    n = sum(p.numel() for p in build_predictor("flownets").parameters())
+    print(f"  FlowNetS (pinard, with BatchNorm): {n} parameters; seeded random "
+          f"weights; the loss reads all 6 flows")
+    model = OpticalFlowReg("flownets", generator=torch.Generator().manual_seed(40))
+    model.to(DEV)
+    imgs, segs = phantom_batch(BATCH, SIZE, seed=41)
+    imgs, segs = imgs.to(DEV), segs.to(DEV)
+    eval_launches, eval_steps = {}, {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        step = make_eval_step(model, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        (flows, warped, wsegs, grid), metrics = step(imgs, segs)
+        torch.cuda.synchronize()
+        eval_launches[name] = counts()
+        print(f"  eval {name}: launches {eval_launches[name]}; loss "
+              f"{float(metrics['loss']):.6g}; |flow0| max "
+              f"{float(flows[0].float().abs().max()):.4g} px")
+        require(eval_launches[name] == FLOWNETS_EVAL_LAUNCHES,
+                f"flownets' {name} eval step should launch {FLOWNETS_EVAL_LAUNCHES}")
+        require([tuple(f.shape) for f in flows] == [(BATCH, SIZE, SIZE, 2),
+                                                    (BATCH, SIZE // 4, SIZE // 4, 2)]
+                and [tuple(w.shape) for w in warped] == [(BATCH, SIZE, SIZE, 1),
+                                                         (BATCH, SIZE // 4, SIZE // 4, 1)]
+                and wsegs.shape == grid.shape == (BATCH, SIZE, SIZE, 1),
+                "flownets: output shapes")
+        for t in (*flows, *warped, wsegs, grid, *metrics.values()):
+            require(bool(torch.isfinite(t.float()).all()), f"flownets {name}: non-finite output")
+        require(set(torch.unique(wsegs).tolist()) <= {0.0, 1.0, 2.0, 3.0},
+                "warped labels outside 0..3")
+        eval_steps[name] = step
+
+    train_launches, train_steps = {}, {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        tmodel = OpticalFlowReg("flownets", generator=torch.Generator().manual_seed(42))
+        state = create_train_state(tmodel.to(DEV))
+        step = make_train_step(state, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        metrics = step(imgs)
+        torch.cuda.synchronize()
+        train_launches[name] = counts()
+        print(f"  train {name}: launches in one step {train_launches[name]}")
+        require(train_launches[name] == FLOWNETS_TRAIN_LAUNCHES,
+                f"flownets' {name} train step should launch {FLOWNETS_TRAIN_LAUNCHES}")
+        loss_falls(f"flownets train {name}", step, imgs, float(metrics["loss"]))
+        require(state.step == 5 and all(bool(torch.isfinite(p).all())
+                                         for p in tmodel.parameters()),
+                f"flownets {name}: step count or non-finite weights")
+        train_steps[name] = step
+
+    # batch 1 against the same weights on the CPU, through the plain versions
+    cpu_model = copy.deepcopy(model).cpu()
+    flops = conv_flops(cpu_model.eval(), imgs[:1].cpu())
+    print(f"  flownets' convolutions: {flops / 1e9:.3f} GFLOP a pair forward at 256², "
+          f"{BATCH * flops / 1e9:.3f} at batch {BATCH}")
+    (cflows, _, _, _), cmetrics = make_eval_step(cpu_model)(imgs[:1].cpu(),
+                                                             segs[:1].cpu())
+    (gflows, _, _, _), gmetrics = eval_steps["fp32"](imgs[:1], segs[:1])
+    check_flows("flownets eval, batch 1, card vs CPU (fp32, no TF32),", gflows, cflows)
+    for k in cmetrics:
+        r = abs(float(gmetrics[k]) / float(cmetrics[k]) - 1)
+        print(f"    {k}: card {float(gmetrics[k]):.7g}, CPU {float(cmetrics[k]):.7g}, "
+              f"{r:.3g} relative (tolerance 1e-4)")
+        require(r <= 1e-4, f"flownets: card and CPU {k} disagree")
+    # the fp32-gradient rule with cuDNN's convolutions, as the step runs;
+    # the distance without cuDNN is printed beside it
+    net = OpticalFlowReg("flownets", generator=torch.Generator().manual_seed(43))
+    step_of = lambda st: make_train_step(st)
+    cpu = cpu_gradients(net, step_of, imgs[:1].cpu())
+    card_against_cpu("flownets", net, step_of, imgs[:1].cpu(), cpu)
+    with torch.backends.cudnn.flags(enabled=False):
+        _, ggrads = gradients3d(copy.deepcopy(net).to(DEV), step_of, imgs[:1])
+    whole, median, worst = gradient_distance(ggrads, cpu[1][1])
+    print(f"  flownets (convolutions without cuDNN, not held) batch 1 gradients, card "
+          f"fp32 vs CPU fp64, relative L2: whole model {whole:.3g}, per tensor median "
+          f"{median:.3g}, worst {worst:.3g}")
+
+    # the flow-supervised step on the phantom gate's pairs, magnitude (0, 1.5)
+    gen = torch.Generator(device=DEV).manual_seed(44)
+    simgs, _, disp = phantom_pairs(gen, BATCH, SIZE, (0.0, 1.5))
+    for units in ("resolution", "pwc20"):
+        smodel = OpticalFlowReg("flownets", generator=torch.Generator().manual_seed(45))
+        state = create_train_state(smodel.to(DEV))
+        step = make_flow_supervised_step(state, flow_units=units)
+        torch.cuda.synchronize()
+        reset_counts()
+        epes = [step(simgs, disp)]
+        torch.cuda.synchronize()
+        got = counts()
+        epes += [step(simgs, disp) for _ in range(4)]
+        print(f"  flow-supervised step ({units}) at batch {BATCH}: launches {got}; "
+              f"EPE over 5 steps on one batch: "
+              + ", ".join(f"{float(m['epe']):.6g}" for m in epes)
+              + f" (finest {float(epes[0]['epe0']):.6g} -> {float(epes[-1]['epe0']):.6g} px)")
+        require(got == SUPERVISED_LAUNCHES,
+                f"the flow-supervised step should launch {SUPERVISED_LAUNCHES}")
+        require(all(np.isfinite(float(m["epe"])) for m in epes)
+                and float(epes[-1]["epe"]) < float(epes[0]["epe"]),
+                f"flow-supervised ({units}): the EPE is not finite or does not fall")
+        # batch 1, card against CPU: the metrics, and the fp32 gradient by
+        # the CPU tests' rule, not PERF.md §2's "twice the CPU's distance":
+        # no hand-written kernel is on this gradient's path (K3's warps are
+        # not in the loss), the CPU's fp32 gradient of this well-conditioned
+        # loss lay 1.94e-05 from fp64, and the card's 1.36e-03 with cuDNN
+        # and 6.51e-04 with PyTorch's own CUDA convolutions, nearly all of
+        # it in the full-resolution encoder convolutions' weight gradients
+        # (conv2: 2.9e-03 and 8.7e-04 against the CPU's 2.0e-05; PERF.md
+        # §6, PR 12)
+        net = OpticalFlowReg("flownets", generator=torch.Generator().manual_seed(46))
+        pair, dpair = simgs[:1].cpu(), disp[:1].cpu()
+        cm, c32 = supervised_gradients(net, units, pair, dpair)
+        _, c64 = supervised_gradients(copy.deepcopy(net).double(), units,
+                                      pair.double(), dpair.double())
+        gm, g32 = supervised_gradients(copy.deepcopy(net).to(DEV), units,
+                                       pair.to(DEV), dpair.to(DEV))
+        for k in cm:
+            r = abs(gm[k] / cm[k] - 1)
+            print(f"    {units} {k}: card {gm[k]:.7g}, CPU {cm[k]:.7g}, {r:.3g} "
+                  f"relative (tolerance 1e-4)")
+            require(r <= 1e-4, f"flow-supervised ({units}): card and CPU {k} disagree")
+        hold_fp32_gradients(f"flow-supervised ({units})", g32, c32, c64)
+
+    # the rest of the 2-D zoo through the head, eval mode, batch 1, against
+    # the CPU, with each one's launches
+    for name, want_launches in ZOO_EVAL_LAUNCHES.items():
+        net = OpticalFlowReg(name, generator=torch.Generator().manual_seed(47))
+        (want, _, _, _), cm = make_eval_step(net)(imgs[:1].cpu(), segs[:1].cpu())
+        card_net = copy.deepcopy(net).to(DEV)
+        step = make_eval_step(card_net)
+        torch.cuda.synchronize()
+        reset_counts()
+        (got, _, _, _), gm = step(imgs[:1], segs[:1])
+        torch.cuda.synchronize()
+        launches = counts()
+        print(f"  {name} ({type(net.predictor).__name__}, "
+              f"{sum(p.numel() for p in net.parameters())} parameters) eval, batch 1: "
+              f"launches {launches}")
+        require(launches == want_launches, f"{name}'s eval step should launch "
+                f"{want_launches}")
+        check_flows(f"{name} eval, batch 1, card vs CPU,", got, want)
+        for k in cm:
+            require(abs(float(gm[k]) / float(cm[k]) - 1) <= 1e-4,
+                    f"{name}: card and CPU {k} disagree")
+        del net, card_net
+    # FlowNetCPinard, the module alone on a 6-channel pair (the head feeds 2
+    # channels): train mode gives 5 flows, eval mode (flow2,); one K1 each
+    pinard = build_predictor("flownetc-pinard", generator=torch.Generator().manual_seed(48))
+    pair = imgs[:1].permute(0, 3, 1, 2).cpu()
+    noise = torch.rand((1, 6, SIZE, SIZE), generator=torch.Generator().manual_seed(49))
+    x = torch.cat([pair[:, :1]] * 3 + [pair[:, 1:]] * 3, 1) + 0.05 * noise
+    card_pinard = copy.deepcopy(pinard).to(DEV)
+    for train in (True, False):
+        with torch.no_grad():
+            want = pinard.train(train)(x)
+            reset_counts()
+            got = card_pinard.train(train)(x.to(DEV))
+            torch.cuda.synchronize()
+        require(counts() == launches_of(correlation=1), "flownetc-pinard: one K1")
+        require(len(got) == (5 if train else 1), "flownetc-pinard: number of flows")
+        check_flows(f"flownetc-pinard {'train' if train else 'eval'} mode, card vs CPU,",
+                    got, want)
+    del pinard, card_pinard
+
+    # both 2-D CLIs with --model flownets
+    with tempfile.TemporaryDirectory() as work:
+        train_cli_and_resume("flownets", train_dirs, work)
+        require(os.path.isfile(best_weight_path(work, "FlowNetS")),
+                "the training CLI did not save flownets' best weights under FlowNetS")
+        real_eval_cli("flownets", pair_dirs, work, FLOWNETS_EVAL_LAUNCHES)
+        got = synthetic_eval_cli("flownets", train_dirs, work)
+        # 2 batches of 4: each eval step's launches and one K3 in the
+        # batch's elastic synthesis
+        require(got == launches_of(warp2d=2 * (FLOWNETS_EVAL_LAUNCHES["warp2d"] + 1)),
+                "flownets inference --mode synthetic: launch counts")
     return ({"eval": eval_launches, "train": train_launches},
             {"eval": eval_steps, "train": train_steps}, imgs, segs)
 
@@ -2838,9 +3076,11 @@ def main():
     pwc_launches, pwc_steps, pwc_imgs, pwc_segs = pwc_path(pair_dirs, train_dirs)
     mark("PWC family")
     raft_launches, raft_steps, raft_imgs, raft_segs = raft_path(pair_dirs, train_dirs)
+    mark("RAFT")
+    fns_launches, fns_steps, fns_imgs, fns_segs = flownets_path(pair_dirs, train_dirs)
     pairs.cleanup()
     train_vols.cleanup()
-    mark("RAFT")
+    mark("FlowNetS and the 2-D zoo")
     vol_steps = {"affine": affine_step, "deform": deform_step}
     kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                       vol_steps, vols, vflow, velocity)
@@ -2865,6 +3105,12 @@ def main():
     for name, step in raft_steps["train"].items():
         step_times(f"raft-reg train step {name}, batch {BATCH} at 256²",
                    lambda: step(raft_imgs))
+    for name, step in fns_steps["eval"].items():
+        step_times(f"flownets eval step {name}, batch {BATCH} at 256² with segs",
+                   lambda: step(fns_imgs, fns_segs)[1])
+    for name, step in fns_steps["train"].items():
+        step_times(f"flownets train step {name}, batch {BATCH} at 256²",
+                   lambda: step(fns_imgs))
     syn_calls = {"register_syn": lambda f, m, k: register_syn(f, m, k, (10, 0, 0))}
     syn3d_calls = {"register_syn3d": lambda f, m: register_syn3d(f, m)}
     step_times("register_syn at 256², (10, 0, 0)",
@@ -2882,6 +3128,8 @@ def main():
     breakdown("pwc-reg train step", pwc_steps["train"], (pwc_imgs,))
     breakdown("raft-reg eval step", raft_steps["eval"], (raft_imgs, raft_segs))
     breakdown("raft-reg train step", raft_steps["train"], (raft_imgs,))
+    breakdown("flownets eval step", fns_steps["eval"], (fns_imgs, fns_segs))
+    breakdown("flownets train step", fns_steps["train"], (fns_imgs,))
     breakdown("registration", syn_calls, syn_args)
     breakdown("registration", syn3d_calls, syn3d_args)
     mark("breakdown")
@@ -2889,7 +3137,9 @@ def main():
                 "affine": {"fp32": affine_launches}, "deform": {"fp32": deform_launches},
                 "syn": {"fp32": syn_launches}, "syn3d": {"fp32": syn3d_launches},
                 "pwc_eval": pwc_launches["eval"], "pwc_train": pwc_launches["train"],
-                "raft_eval": raft_launches["eval"], "raft_train": raft_launches["train"]}
+                "raft_eval": raft_launches["eval"], "raft_train": raft_launches["train"],
+                "flownets_eval": fns_launches["eval"],
+                "flownets_train": fns_launches["train"]}
     for row in kernels:
         dtype = "bf16" if row["name"].endswith("_bf16") else "fp32"
         row["launches"] = launches[row.pop("_path")][dtype][row.pop("_counter")]

@@ -3,6 +3,7 @@ two checkpoint tiers and resume, evaluation in ``--mode synthetic`` on small
 Analyze volumes, and the training CLI's refusal without a card."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -20,11 +21,21 @@ TRAIN_ARGS = ["--model", "flownet2", "--synthetic", "2", "--image_size", "64",
               "--batch_size", "2"]
 
 
-def test_train_cli_writes_both_tiers_and_resumes(tmp_path, capsys):
+@pytest.fixture
+def work_path(tmp_path):
+    """``tmp_path``, deleted when the test ends. A CLI test's checkpoints are
+    large (FlowNet2's training state and best weights: 2.5 GB), and pytest
+    keeps the temporary directories of its last three runs: left in place,
+    they filled the disk under a whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def test_train_cli_writes_both_tiers_and_resumes(work_path, capsys):
     from tpureg_torch.cli.train import main
 
-    work = str(tmp_path)
-    args = TRAIN_ARGS + ["--workdir", work, "--logdir", str(tmp_path / "log")]
+    work = str(work_path)
+    args = TRAIN_ARGS + ["--workdir", work, "--logdir", str(work_path / "log")]
     state = main(args + ["--epochs", "1", "--cp", "0"], device="cpu")
     out = capsys.readouterr().out
     assert "EPOCH 1/1" in out and "[TRAIN batch 001/2]" in out
@@ -61,27 +72,27 @@ def test_train_cli_halts_on_a_non_finite_loss(tmp_path, monkeypatch):
     assert not os.path.exists(training_state_path(str(tmp_path), "FlowNet2"))
 
 
-def test_inference_cli_synthetic_mode_runs_on_cpu(tmp_path, capsys):
+def test_inference_cli_synthetic_mode_runs_on_cpu(work_path, capsys):
     from tpureg_torch.cli.inference import main
 
     rng = np.random.default_rng(5)
     for d in ("img", "seg"):
-        (tmp_path / d).mkdir()
+        (work_path / d).mkdir()
     shape = (24, 30, 142)
     x, y, z = np.meshgrid(*(np.linspace(-1, 1, n) for n in shape), indexing="ij")
     for i in range(2):
         r = np.sqrt((x - rng.uniform(-.1, .1)) ** 2 + y ** 2 + (z / 2.5) ** 2)
         seg = np.select([r < 0.35, r < 0.6, r < 0.85], [3, 2, 1], 0)
-        write_analyze(str(tmp_path / "img" / f"s{i}_mpr"),
+        write_analyze(str(work_path / "img" / f"s{i}_mpr"),
                       seg * 200 + rng.normal(0, 10, shape))
-        write_analyze(str(tmp_path / "seg" / f"s{i}_seg"), seg)
+        write_analyze(str(work_path / "seg" / f"s{i}_seg"), seg)
     model = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(0))
-    save_best_weights(str(tmp_path), "FlowNet2", model, {"loss": 1.0})
+    save_best_weights(str(work_path), "FlowNet2", model, {"loss": 1.0})
 
     results = main([
         "--mode", "synthetic", "--model", "flownet2", "--batch_size", "1",
-        "--img_dir", str(tmp_path / "img"), "--seg_dir", str(tmp_path / "seg"),
-        "--workdir", str(tmp_path), "--logdir", str(tmp_path / "log"),
+        "--img_dir", str(work_path / "img"), "--seg_dir", str(work_path / "seg"),
+        "--workdir", str(work_path), "--logdir", str(work_path / "log"),
         "--max_samples", "2",
     ], device="cpu")
     out = capsys.readouterr().out

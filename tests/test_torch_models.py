@@ -30,7 +30,6 @@ from tpureg_torch.models import (
     FlowNetFusion,
     FlowNetS,
     FlowNetSD,
-    build_predictor,
 )
 
 SIZE = 64
@@ -135,17 +134,6 @@ def test_bridge_equals_tpureg_export(flownet2_trees):
 def test_bridge_rejects_unknown_leaf():
     with pytest.raises(ValueError):
         state_dict_from_jax({"conv1": {"bn": {"bogus": np.zeros(2)}}}, prefix=())
-
-
-@pytest.mark.parametrize("name", ["flownets", "flownet2-c", "flownetc",
-                                  "flownets-full"])
-def test_registry_ports_only_flownet2(name):
-    """Of the FlowNet names only the cascade is ported; the PWC names are
-    covered by tests/test_torch_pwc.py and the RAFT names by
-    tests/test_torch_raft.py."""
-    assert isinstance(build_predictor("flownet2"), FlowNet2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_predictor(name)
 
 
 def test_seeded_init_is_reproducible():

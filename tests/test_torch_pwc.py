@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from test_torch_cli import work_path  # noqa: F401 (a fixture)
 from test_torch_elastic import write_analyze
 from tpureg.compat.torch_export import export_torch_state_dict
 from tpureg.models import PWCDCNetOld as JaxPWCDCNetOld
@@ -511,17 +512,17 @@ def test_bf16_eval_step_matches_tpureg(trees):
 # ---------------------------------------------------------------------------
 # both 2-D CLIs
 
-def test_cli_trains_resumes_and_evaluates_pwc_reg(tmp_path, capsys):
+def test_cli_trains_resumes_and_evaluates_pwc_reg(work_path, capsys):
     """The training CLI trains pwc-reg on 2 random batches at 64², writes its
     state and best weights under ``PWCDCNet``, resumes with ``--cp 1``; the
     inference CLI loads those weights and scores ``--mode synthetic``."""
     from tpureg_torch.cli.inference import main as infer
     from tpureg_torch.cli.train import main as train
 
-    work = str(tmp_path)
+    work = str(work_path)
     args = ["--model", "pwc-reg", "--synthetic", "2", "--image_size", "64",
             "--batch_size", "2", "--workdir", work, "--logdir",
-            str(tmp_path / "log")]
+            str(work_path / "log")]
     state = train(args + ["--epochs", "1", "--cp", "0"], device="cpu")
     out = capsys.readouterr().out
     assert "EPOCH 1/1" in out and "saving new best weights" in out
@@ -536,19 +537,19 @@ def test_cli_trains_resumes_and_evaluates_pwc_reg(tmp_path, capsys):
 
     rng = np.random.default_rng(9)
     for d in ("img", "seg"):
-        (tmp_path / d).mkdir()
+        (work_path / d).mkdir()
     shape = (24, 30, 142)
     x, y, z = np.meshgrid(*(np.linspace(-1, 1, n) for n in shape), indexing="ij")
     for i in range(2):
         r = np.sqrt((x - rng.uniform(-.1, .1)) ** 2 + y ** 2 + (z / 2.5) ** 2)
         seg = np.select([r < 0.35, r < 0.6, r < 0.85], [3, 2, 1], 0)
-        write_analyze(str(tmp_path / "img" / f"s{i}_mpr"),
+        write_analyze(str(work_path / "img" / f"s{i}_mpr"),
                       seg * 200 + rng.normal(0, 10, shape))
-        write_analyze(str(tmp_path / "seg" / f"s{i}_seg"), seg)
+        write_analyze(str(work_path / "seg" / f"s{i}_seg"), seg)
     results = infer([
         "--mode", "synthetic", "--model", "pwc-reg", "--batch_size", "1",
-        "--img_dir", str(tmp_path / "img"), "--seg_dir", str(tmp_path / "seg"),
-        "--workdir", work, "--logdir", str(tmp_path / "log_eval"),
+        "--img_dir", str(work_path / "img"), "--seg_dir", str(work_path / "seg"),
+        "--workdir", work, "--logdir", str(work_path / "log_eval"),
         "--max_samples", "2",
     ], device="cpu")
     out = capsys.readouterr().out

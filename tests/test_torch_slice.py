@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_cli import work_path  # noqa: F401 (a fixture)
 from tpureg.reg import OpticalFlowReg as JaxOpticalFlowReg
 from tpureg.train import create_train_state
 from tpureg.train import make_eval_step as jax_make_eval_step
@@ -159,13 +160,13 @@ def _phantom(rng, shape=(40, 48, 142)):
     return img.astype(np.int16), seg.astype(np.int16)
 
 
-def test_inference_cli_runs_on_cpu(tmp_path, capsys):
+def test_inference_cli_runs_on_cpu(work_path, capsys):
     from tpureg_torch.cli.inference import main
 
     rng = np.random.default_rng(0)
     dirs = {}
     for name in ("fiximg", "fixseg", "movimg", "movseg"):
-        dirs[name] = tmp_path / name
+        dirs[name] = work_path / name
         dirs[name].mkdir()
     for kind, n in (("fix", 1), ("mov", 2)):
         for i in range(n):
@@ -174,13 +175,13 @@ def test_inference_cli_runs_on_cpu(tmp_path, capsys):
             write_analyze(str(dirs[f"{kind}seg"] / f"{kind}{i}_seg"), seg)
     model = OpticalFlowReg("flownet2",
                            generator=torch.Generator().manual_seed(0))
-    save_best_weights(str(tmp_path), "FlowNet2", model, {"loss": 1.0})
+    save_best_weights(str(work_path), "FlowNet2", model, {"loss": 1.0})
 
     results = main([
         "--mode", "real", "--model", "flownet2", "--batch_size", "1",
         "--fiximg_dir", str(dirs["fiximg"]), "--fixseg_dir", str(dirs["fixseg"]),
         "--movimg_dir", str(dirs["movimg"]), "--movseg_dir", str(dirs["movseg"]),
-        "--workdir", str(tmp_path), "--logdir", str(tmp_path / "log"),
+        "--workdir", str(work_path), "--logdir", str(work_path / "log"),
         "--max_samples", "2",
     ], device="cpu")
     out = capsys.readouterr().out
@@ -208,7 +209,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
 # the root scripts that run on the card
 ROOT_SCRIPTS = ("chip_smoke.py", "ab_warp2d.py", "ab_warp2d_dpos.py", "ab_warp3d_dvol.py",
-                "ab_correlation.py", "torch_quality_real.py", "torch_quality3d.py")
+                "ab_correlation.py", "torch_quality_real.py", "torch_quality3d.py",
+                "torch_quality_phantom.py")
 
 
 def _port_sources():

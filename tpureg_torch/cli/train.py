@@ -124,8 +124,12 @@ def build_argparser():
     p.add_argument("--img_dir", default="OASIS1/masked", metavar="DIR_Img")
     p.add_argument("--seg_dir", default="OASIS1/seg", metavar="DIR_Seg")
     p.add_argument("--model", default="flownet2",
-                   help="flownet2, pwc, pwc-bilinear, pwc-reg, raft or "
-                        "raft-reg (the registry names ported so far)")
+                   help="flownets (FlowNetS, also built for any name the registry "
+                        "does not know), flownets-full, flownetc, flownetsd, "
+                        "flownet2, flownet2-c, flownet2-s, flownet2-sd, "
+                        "flownet2-cs, flownet2-css, pwc, pwc-bilinear, pwc-reg, "
+                        "raft or raft-reg (pwc-old and flownetc-pinard take a "
+                        "6-channel pair and do not run through the head)")
     p.add_argument("--epochs", default=4, type=int)
     p.add_argument("--batch_size", default=24, type=int)
     p.add_argument("--lrIni", default=1e-4, type=float)

@@ -59,14 +59,19 @@ def smoothness_loss(flow):
 
 
 def _pearson_one_minus(fixed, warped, batch):
-    """1 - global Pearson with the reference's 1/B factor and zero guard."""
+    """1 - global Pearson with the reference's 1/B factor and zero guard.
+    The guard also sits inside the roots: tpureg's ``where(degenerate, 1,
+    sqrt(sx)·sqrt(sy))`` passes 0·∞ = NaN back from the branch it does not
+    take, so a constant warped scale (a 1×1 flow) gave NaN gradients there
+    (ROADMAP C9); here the gradient is 0, and elsewhere unchanged."""
     vx = warped - torch.mean(warped)
     vy = fixed - torch.mean(fixed)
     sx = torch.sum(torch.square(vx))
     sy = torch.sum(torch.square(vy))
     degenerate = (sx == 0.0) | (sy == 0.0)
     one = torch.ones_like(sx)
-    denom = torch.where(degenerate, one, torch.sqrt(sx) * torch.sqrt(sy))
+    denom = (torch.sqrt(torch.where(degenerate, one, sx))
+             * torch.sqrt(torch.where(degenerate, one, sy)))
     corr = torch.where(degenerate, one, torch.sum(vx * vy) / denom / batch)
     return 1.0 - corr
 

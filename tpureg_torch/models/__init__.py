@@ -1,12 +1,14 @@
 """Flow-estimator models and the name registry (counterpart of
 ``tpureg/models/__init__.py``).
 
-The registry keeps tpureg's dispatch: explicit names first, then substring
-matching ("flownet2" before "raft" before "pwc"). Of the 2-D flow
-estimators the FlowNet2 cascade, the PWC-Net family and RAFT are ported;
-every name that resolves to another model raises ``NotImplementedError``.
-The 3-D models (``VoxelMorph3D``, ``AffineNet3D``) are built directly, as
-tpureg's volumetric CLI builds them.
+The registry is tpureg's: explicit names first, then substring matching
+("flownet2" → the cascade, then "raft" → RAFT, then "pwc" → PWC-DC Net), and
+any other name builds FlowNetS in the Pinard style, the registration head's
+default ("flownets"). "flownet2-nhwc" names the cascade's plain path in
+tpureg, which is the only path here. "pwc-old" and "flownetc-pinard" take a
+6-channel RGB pair, so they run as modules only, as in tpureg. The 3-D models
+(``VoxelMorph3D``, ``AffineNet3D``) are built directly, as tpureg's volumetric
+CLI builds them.
 """
 
 from __future__ import annotations
@@ -16,36 +18,49 @@ from typing import Optional
 import torch
 
 from .affine3d import AffineNet3D, affine_warp3d
-from .flownet2 import FlowNet2
-from .flownet_c import FlowNetC
+from .flownet2 import (
+    FlowNet2,
+    FlowNet2C,
+    FlowNet2CS,
+    FlowNet2CSS,
+    FlowNet2S,
+    FlowNet2SD,
+)
+from .flownet_c import FlowNetC, FlowNetCPinard
 from .flownet_fusion import FlowNetFusion
-from .flownet_s import FlowNetS
+from .flownet_s import FlowNetS, FlowNetSFull
 from .flownet_sd import FlowNetSD
 from .pwcnet import PWCDCNet, PWCDCNetOld
 from .raft import RAFT
 from .voxelmorph3d import VoxelMorph3D
 
-__all__ = ["AffineNet3D", "FlowNet2", "FlowNetC", "FlowNetFusion", "FlowNetS",
-           "FlowNetSD", "PWCDCNet", "PWCDCNetOld", "RAFT", "VoxelMorph3D",
-           "affine_warp3d", "build_predictor"]
+__all__ = ["AffineNet3D", "FlowNet2", "FlowNet2C", "FlowNet2CS", "FlowNet2CSS",
+           "FlowNet2S", "FlowNet2SD", "FlowNetC", "FlowNetCPinard",
+           "FlowNetFusion", "FlowNetS", "FlowNetSFull", "FlowNetSD", "PWCDCNet",
+           "PWCDCNetOld", "RAFT", "VoxelMorph3D", "affine_warp3d",
+           "build_predictor"]
 
-# tpureg's explicit registry names that the port has
+# tpureg's explicit names: fn(use_bn, generator)
 _EXPLICIT = {
-    # the legacy RGB net: a 6-channel pair, eval mode returns a bare flow,
-    # so no head or CLI path of tpureg runs it
-    "pwc-old": lambda g: PWCDCNetOld(generator=g),
-    "pwc-bilinear": lambda g: PWCDCNet(flow_up_init="bilinear", generator=g),
-    "pwc-reg": lambda g: PWCDCNet(flow_up_init="bilinear", feed_warped=True,
-                                  generator=g),
+    "flownet2-c": lambda bn, g: FlowNet2C(use_bn=bn, generator=g),
+    "flownet2-s": lambda bn, g: FlowNet2S(use_bn=bn, generator=g),
+    "flownet2-sd": lambda bn, g: FlowNet2SD(use_bn=bn, generator=g),
+    "flownet2-cs": lambda bn, g: FlowNet2CS(use_bn=bn, generator=g),
+    "flownet2-css": lambda bn, g: FlowNet2CSS(use_bn=bn, generator=g),
+    "flownetc": lambda bn, g: FlowNetC(use_bn=bn, generator=g),
+    "flownet2-nhwc": lambda bn, g: FlowNet2(use_bn=bn, generator=g),
+    "flownetc-pinard": lambda bn, g: FlowNetCPinard(use_bn=bn, generator=g),
+    "flownetsd": lambda bn, g: FlowNetSD(use_bn=bn, generator=g),
+    "flownets-full": lambda bn, g: FlowNetSFull(use_bn=bn, generator=g),
+    # the legacy RGB net: a 6-channel pair, eval mode returns a bare flow
+    "pwc-old": lambda bn, g: PWCDCNetOld(generator=g),
+    "pwc-bilinear": lambda bn, g: PWCDCNet(flow_up_init="bilinear", generator=g),
+    "pwc-reg": lambda bn, g: PWCDCNet(flow_up_init="bilinear", feed_warped=True,
+                                      generator=g),
     # registration-tuned RAFT: the warped moving features beside the
     # lookup, at 1/4 resolution
-    "raft-reg": lambda g: RAFT(feed_warped=True, downsample=4, generator=g),
+    "raft-reg": lambda bn, g: RAFT(feed_warped=True, downsample=4, generator=g),
 }
-# the rest of them; "flownet2-nhwc" is the cascade itself here, since the
-# port has only that path
-_EXPLICIT_NOT_PORTED = ("flownet2-c", "flownet2-s", "flownet2-sd",
-                        "flownet2-cs", "flownet2-css", "flownetc",
-                        "flownetc-pinard", "flownetsd", "flownets-full")
 
 
 def build_predictor(name: str, use_bn: bool = True,
@@ -53,14 +68,11 @@ def build_predictor(name: str, use_bn: bool = True,
     """Build a flow predictor from a registry name (tpureg's dispatch)."""
     key = name.lower()
     if key in _EXPLICIT:
-        return _EXPLICIT[key](generator)
-    if key not in _EXPLICIT_NOT_PORTED:
-        if "flownet2" in key:
-            return FlowNet2(use_bn=use_bn, generator=generator)
-        if "raft" in key:
-            return RAFT(generator=generator)
-        if "pwc" in key:
-            return PWCDCNet(generator=generator)
-    raise NotImplementedError(
-        f"model {name!r} is not yet ported to tpureg_torch (only 'flownet2', "
-        f"the 'pwc' names and the 'raft' names are)")
+        return _EXPLICIT[key](use_bn, generator)
+    if "flownet2" in key:
+        return FlowNet2(use_bn=use_bn, generator=generator)
+    if "raft" in key:
+        return RAFT(generator=generator)
+    if "pwc" in key:
+        return PWCDCNet(generator=generator)
+    return FlowNetS(use_bn=use_bn, style="pinard", generator=generator)

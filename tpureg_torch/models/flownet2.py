@@ -11,6 +11,16 @@ grayscale-adapted: the input is [B, 2, H, W], fixed and moving channels).
 6. the fused flow is returned twice, so the multi-scale loss sees n = 2
    identical scales, as in the reference.
 
+The cascade's sub-variants (``tpureg/models/flownet2.py:184-287``):
+``FlowNet2C``, ``FlowNet2S`` (an NVIDIA FlowNetS on the 2-channel pair) and
+``FlowNet2SD`` return their subnet's raw five flows in training mode and, in
+eval mode, flow2 × div_flow upsampled ×4 (bilinear, align_corners=False);
+``FlowNet2CS`` and ``FlowNet2CSS`` run the C → S (→ S) prefix of the cascade
+as a child named ``cascade``, so that tpureg's parameter paths
+``cascade/flownetc/...`` map onto the keys ``cascade.flownetc....``; they
+return the last S block's raw flows in training mode and its upsampled
+flow in eval mode.
+
 The TPU path's packed planes (``_call_packed``) are lane-padding work and
 are not ported. NCHW.
 """
@@ -30,7 +40,23 @@ from .flownet_fusion import FlowNetFusion
 from .flownet_s import FlowNetS
 from .flownet_sd import FlowNetSD
 
-__all__ = ["FlowNet2"]
+__all__ = ["FlowNet2", "FlowNet2C", "FlowNet2S", "FlowNet2SD", "FlowNet2CS",
+           "FlowNet2CSS"]
+
+
+def up4(flow, method: str = "bilinear"):
+    """×4 resize of a [B, 2, h, w] flow (align_corners=False)."""
+    return resize2d(flow, (flow.shape[2] * 4, flow.shape[3] * 4), method,
+                    align_corners=False)
+
+
+def refine_input(x, flow, div_flow: float):
+    """The 6-channel input of an S block of the cascade: the pair, the
+    moving image warped by ``flow`` (the "pixel" warp), the flow / div_flow
+    and the brightness error's channel norm."""
+    warped = warp2d(x[:, 1:2], flow, convention="pixel")
+    err = channelnorm(x[:, 0:1] - warped)
+    return torch.cat([x, warped, flow / div_flow, err], dim=1)
 
 
 class FlowNet2(nn.Module):
@@ -50,21 +76,13 @@ class FlowNet2(nn.Module):
         x1 = x[:, 0:1]
         x2 = x[:, 1:2]
 
-        def up4(flow, method):
-            return resize2d(flow, (flow.shape[2] * 4, flow.shape[3] * 4),
-                            method, align_corners=False)
-
         # --- block 1: FlowNetC
-        flow_c = up4(self.flownetc(x)[0] * self.div_flow, "bilinear")
-        warped1 = warp2d(x2, flow_c, convention="pixel")
-        err1 = channelnorm(x1 - warped1)
-        concat1 = torch.cat([x, warped1, flow_c / self.div_flow, err1], dim=1)
+        flow_c = up4(self.flownetc(x)[0] * self.div_flow)
+        concat1 = refine_input(x, flow_c, self.div_flow)
 
         # --- block 2: FlowNetS1
-        flow_s1 = up4(self.flownets_1(concat1)[0] * self.div_flow, "bilinear")
-        warped2 = warp2d(x2, flow_s1, convention="pixel")
-        err2 = channelnorm(x1 - warped2)
-        concat2 = torch.cat([x, warped2, flow_s1 / self.div_flow, err2], dim=1)
+        flow_s1 = up4(self.flownets_1(concat1)[0] * self.div_flow)
+        concat2 = refine_input(x, flow_s1, self.div_flow)
 
         # --- block 3: FlowNetS2 (nearest ×4, reference quirk :160)
         flow_s2 = up4(self.flownets_2(concat2)[0] * self.div_flow, "nearest")
@@ -81,3 +99,95 @@ class FlowNet2(nn.Module):
             [x1, flow_sd, flow_s2, norm_sd, norm_s2, err_sd, err_s2], dim=1)
         flow_fused = self.flownetfusion(concat3)
         return (flow_fused, flow_fused)
+
+
+class _Upsampled(nn.Module):
+    """One subnet of the cascade alone, under the child name ``name``
+    (flownet2/models.py:193-357): its raw flows in training mode, flow2 ×
+    div_flow upsampled ×4 in eval mode."""
+
+    def __init__(self, name: str, net: nn.Module, div_flow: float):
+        super().__init__()
+        self.div_flow = div_flow
+        self.net_name = name
+        self.add_module(name, net)
+
+    def forward(self, x):
+        flows = getattr(self, self.net_name)(x)
+        if self.training:
+            return flows
+        return (up4(flows[0] * self.div_flow),)
+
+
+class FlowNet2C(_Upsampled):
+    """FlowNetC alone (flownet2/models.py:193-259)."""
+
+    def __init__(self, use_bn: bool = True, div_flow: float = 20.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__("flownetc", FlowNetC(use_bn=use_bn, generator=generator),
+                         div_flow)
+
+
+class FlowNet2S(_Upsampled):
+    """An NVIDIA FlowNetS block alone, on the 2-channel pair
+    (flownet2/models.py:261-305)."""
+
+    def __init__(self, use_bn: bool = True, div_flow: float = 20.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__("flownets", FlowNetS(2, use_bn=use_bn, style="nvidia",
+                                              generator=generator), div_flow)
+
+
+class FlowNet2SD(_Upsampled):
+    """FlowNetSD alone (flownet2/models.py:307-357)."""
+
+    def __init__(self, use_bn: bool = True, div_flow: float = 20.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__("flownets_d", FlowNetSD(use_bn=use_bn, generator=generator),
+                         div_flow)
+
+
+class _CascadePrefix(nn.Module):
+    """FlowNetC, then ``n_s_blocks`` NVIDIA FlowNetS blocks, each refining
+    the previous flow (× div_flow, bilinear ×4) through ``refine_input``.
+    Returns (the last flow upsampled, the last block's raw flows)."""
+
+    def __init__(self, use_bn: bool, div_flow: float, n_s_blocks: int,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.div_flow = div_flow
+        self.flownetc = FlowNetC(use_bn=use_bn, generator=generator)
+        self.blocks = [f"flownets_{i + 1}" for i in range(n_s_blocks)]
+        for name in self.blocks:
+            self.add_module(name, FlowNetS(6, use_bn=use_bn, style="nvidia",
+                                           generator=generator))
+
+    def forward(self, x):
+        flow = up4(self.flownetc(x)[0] * self.div_flow)
+        flows = None
+        for name in self.blocks:
+            flows = getattr(self, name)(refine_input(x, flow, self.div_flow))
+            flow = up4(flows[0] * self.div_flow)
+        return flow, flows
+
+
+class FlowNet2CS(nn.Module):
+    """C → S (flownet2/models.py:359-422)."""
+
+    n_s_blocks = 1
+
+    def __init__(self, use_bn: bool = True, div_flow: float = 20.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cascade = _CascadePrefix(use_bn, div_flow, self.n_s_blocks,
+                                      generator)
+
+    def forward(self, x):
+        flow, flows = self.cascade(x)
+        return flows if self.training else (flow,)
+
+
+class FlowNet2CSS(FlowNet2CS):
+    """C → S → S (flownet2/models.py:424-511)."""
+
+    n_s_blocks = 2

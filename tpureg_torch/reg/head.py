@@ -66,10 +66,10 @@ def outputs_to_nhwc(outputs):
 
 
 class OpticalFlowReg(nn.Module):
-    """Registration head around a registry predictor (``"flownet2"``, the
-    ``"pwc"`` names, ``"raft"``, ``"raft-reg"``)."""
+    """Registration head around a registry predictor (``models/__init__.py``;
+    tpureg's default, ``"flownets"``, is FlowNetS in the Pinard style)."""
 
-    def __init__(self, conv_predictor: str = "flownet2", use_bn: bool = True,
+    def __init__(self, conv_predictor: str = "flownets", use_bn: bool = True,
                  num_seg_labels: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

@@ -15,8 +15,10 @@ from .steps import (
     make_affine_train_step,
     make_deform3d_train_step,
     make_eval_step,
+    make_flow_supervised_step,
     make_train_step,
     set_fp32_numerics,
+    stn_inverse_target,
 )
 
 __all__ = [
@@ -35,6 +37,8 @@ __all__ = [
     "make_affine_train_step",
     "make_deform3d_train_step",
     "make_eval_step",
+    "make_flow_supervised_step",
     "make_train_step",
     "set_fp32_numerics",
+    "stn_inverse_target",
 ]

@@ -16,6 +16,11 @@ decimal digits.
 Each call sets the model's mode: the train step puts it in train mode
 (batch statistics, running-stat updates), the eval step in eval mode.
 
+``make_flow_supervised_step`` is the synthetic-flow pretraining step
+(tpureg steps.py:214-343): mean endpoint error of every flow the head
+returns against ``stn_inverse_target`` of the displacement that synthesised
+the pair, with the same casts as the train step.
+
 ``make_deform3d_train_step`` and ``make_affine_train_step`` are the
 volumetric steps (tpureg steps.py:345-409): VoxelMorph3D with ``DEFloss3D``
 and AffineNet3D with ``Affloss`` on [B, D, H, W, 2] volumes, in fp32 with
@@ -27,12 +32,15 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..losses import Affloss, DEFloss3D, OFEloss
+from ..ops.warp import base_grid
 
 __all__ = ["default_loss_kwargs", "loss_from_outputs", "cast_params",
            "make_train_step", "make_eval_step", "set_fp32_numerics",
+           "stn_inverse_target", "make_flow_supervised_step",
            "make_deform3d_train_step", "make_affine_train_step"]
 
 _TERMS = ("loss", "photo_loss", "corr_loss", "smooth_loss")
@@ -186,6 +194,90 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
         return {k: means[i] for i, k in enumerate(_TERMS)}
 
     return train_step
+
+
+def _resize_antialiased(x, h: int, w: int):
+    """``jax.image.resize(x, ..., "bilinear")`` of NCHW ``x``: a triangle
+    filter widened by the factor where it shrinks (``antialias=True``, JAX's
+    default), each output's weights over the in-image inputs summing to 1;
+    the input itself at its own size."""
+    if tuple(x.shape[2:]) == (h, w):
+        return x
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
+                         antialias=True)
+
+
+def stn_inverse_target(disp, h: int, w: int, h_full: int):
+    """The flow [B, h, w, 2] that the head's "stn" warp needs to undo
+    ``disp`` [B, H, W, 2], the full-resolution pixel displacement that
+    synthesised ``moving(x) = fixed(x + d(x))``. The warp samples at
+    ``(x + flow)·(s-1)/s``, so ``flow = -d·s/(s-1) + x/(s-1)`` per axis,
+    with ``d`` resized to (h, w) (antialiased, as tpureg's) and scaled to
+    pixels of that size (w/W for x, h/H for y). At a 1-wide scale the warp
+    ignores the flow, and the target is ``-d``."""
+    w_full = disp.shape[2]
+    d = _resize_antialiased(disp.permute(0, 3, 1, 2), h, w)
+    dx = d[:, 0] * (w / w_full)
+    dy = d[:, 1] * (h / h_full)
+    g = base_grid(h, w, disp.device, dx.dtype)
+    wd, hd = max(w - 1, 1), max(h - 1, 1)
+    tx = -dx * (w / wd) + (g[..., 0] / wd if w > 1 else 0.0)
+    ty = -dy * (h / hd) + (g[..., 1] / hd if h > 1 else 0.0)
+    return torch.stack([tx, ty], dim=-1)
+
+
+def make_flow_supervised_step(state, compute_dtype: Optional[torch.dtype] = None,
+                              flow_units: str = "resolution"):
+    """``step(imgs, disp) -> metrics`` for a ``TrainState`` around an
+    ``OpticalFlowReg``: supervised synthetic-flow pretraining (tpureg's
+    ``make_flow_supervised_step``, the stand-in for the reference's
+    FlyingChairs weights). ``imgs`` [B, H, W, 2] is a pair whose moving
+    channel was synthesised from the fixed one by the pixel displacement
+    ``disp`` [B, H, W, 2]. The loss is the mean over the head's flows of
+    each one's mean endpoint error (with 1e-12 under the root) against its
+    target; one Adam update. ``metrics``: ``epe`` (the loss) and ``epe0``
+    (the finest flow's), detached 0-d fp32 tensors.
+
+    ``flow_units``: ``"resolution"`` (every flow's target is
+    ``stn_inverse_target`` at its size) or ``"pwc20"`` (flows at ¼ of the
+    input's height or less take ``-d / 20`` resized, PWC's native units,
+    their error counted ×20; the finer ones the stn inverse). Casts and
+    numerics as ``make_train_step``'s."""
+    if flow_units not in ("resolution", "pwc20"):
+        raise ValueError(f"flow_units must be 'resolution' or 'pwc20', got "
+                         f"{flow_units!r}")
+    if compute_dtype is None:
+        set_fp32_numerics()
+    model = state.model
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(imgs, disp):
+        model.train()
+        h_full = imgs.shape[1]
+        with torch.enable_grad():
+            flows = _forward(model, imgs, None, compute_dtype)[0]
+            epe, epe0 = 0.0, None
+            for f in flows:
+                f = f.float()
+                h, w = f.shape[1], f.shape[2]
+                if flow_units == "pwc20" and h * 4 <= h_full:
+                    unit = 20.0
+                    gt = _resize_antialiased(-disp.permute(0, 3, 1, 2), h, w)
+                    gt = gt.permute(0, 2, 3, 1) * (1.0 / 20.0)
+                else:
+                    unit = 1.0
+                    gt = stn_inverse_target(disp, h, w, h_full)
+                term = torch.sqrt(((f - gt) ** 2).sum(-1) + 1e-12).mean()
+                epe0 = term if epe0 is None else epe0
+                epe = epe + unit * term
+            epe = epe / len(flows)
+            grads = torch.autograd.grad(epe, params, materialize_grads=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.apply_gradients()
+        return {"epe": epe.detach(), "epe0": epe0.detach()}
+
+    return step
 
 
 def _volume_train_step(state, terms_of):
