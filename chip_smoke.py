@@ -106,6 +106,24 @@
    the training CLI trains flownets on phase 8's volumes, resumes and saves
    best weights under FlowNetS, which the inference CLI loads in ``--mode
    real`` and ``--mode synthetic``;
+8k. what slices 1-3 left out (ROADMAP A.6): FlowNet2's train step at 256²,
+   batch 8, in fp32 and bf16, and pwc-reg's in fp32, with ``remat="full"``
+   and ``remat="dots"`` beside the base step, from the same weights on the
+   same batch: every K1 and K3 launch of the forward runs again in the
+   backward (FlowNet2 2 K1, 1 K2, 12 K3, 5 K4; pwc-reg 10 K1, 5 K2, 32 K3,
+   6 K4, 4 K5); the loss within 1e-5 relative and the BatchNorm running
+   statistics within 1e-6 of each tensor's largest value (at least 1) of
+   the base step's; the fp32 gradient at batch 1 no further from the
+   CPU's fp64 gradient than twice the further of the card's base step and
+   the CPU's fp32 step, and its distance from the base step's at batch 8
+   beside a second base step's; each step's time and peak memory;
+   the training CLI with ``--pretrained`` and ``--surgery rgb_pair`` on
+   phase 8's volumes (FlowNetS's weights, written by the port with the stem
+   widened to a 6-channel pair) and the inference CLI on phase 6's, both
+   reading their volumes through the native Analyze decoder, built here,
+   which equals the numpy path on every volume; the TensorBoard writer's
+   one warning where no backend imports; ``profiling.trace`` around one
+   FlowNet2 eval step, whose trace names K1's and K3's kernels;
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 (d/dgrid) and K5 (d/dinput),
@@ -140,6 +158,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import io
 import json
 import os
@@ -162,6 +181,7 @@ from tpureg_torch.classical import exp_velocity3d, register_syn, register_syn3d
 from tpureg_torch.classical.syn import exp_velocity, local_ncc
 from tpureg_torch.classical.syn3d import local_ncc3d
 from tpureg_torch.data import VOLUME_SIZE, eval_random_dataset, real_pairs_dataset
+from tpureg_torch.data import analyze
 from tpureg_torch.data.pipeline import _minmax_scale_volume, _process_volume
 from tpureg_torch.metrics import dice_average, neg_jacobian_fraction
 from tpureg_torch.models import AffineNet3D, VoxelMorph3D, build_predictor
@@ -204,6 +224,7 @@ from tpureg_torch.train import (
     save_best_weights,
     set_fp32_numerics,
 )
+from tpureg_torch.utils import trace
 from torch_quality_phantom import make_pairs as phantom_pairs
 
 DEV = torch.device("cuda")
@@ -306,6 +327,14 @@ ZOO_EVAL_LAUNCHES = {
     "flownet2-cs": launches_of(correlation=1, warp2d=4),
     "flownet2-css": launches_of(correlation=1, warp2d=5),
 }
+# remat="full" and "dots" run the head's forward again in the backward, up
+# to the last tensor it saved, the grid warp's: so every K1 and K3 launch of
+# the forward once more (ctypes calls, which the selective policy never
+# keeps); the backward launches as the base step's
+REMAT_TRAIN_LAUNCHES = launches_of(correlation=2, correlation_bwd=1, warp2d=12,
+                                   warp2d_dpos=5)
+PWC_REMAT_TRAIN_LAUNCHES = launches_of(correlation=10, correlation_bwd=5, warp2d=32,
+                                       warp2d_dpos=6, warp2d_dimg=4)
 # register_syn3d, (30, 20, 10): each of the 60 iterations runs 6
 # compositions (K6a; K6b and K6c backward) and the moving volume's warp
 # (K6a; K6b); the final exponential and warp run K6a only (6 + 1)
@@ -2072,6 +2101,219 @@ def flownets_path(pair_dirs, train_dirs):
             {"eval": eval_steps, "train": train_steps}, imgs, segs)
 
 
+# ---------------------------------------------------------------------------
+# A.6: remat, --pretrained/--surgery, the native decoder, TensorBoard, trace
+
+def batchnorm_stats(model):
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def remat_steps(name, dtypes, base_gate, gate, seed, imgs):
+    """One step of the base, "full" and "dots" train steps of ``name`` from
+    the same weights on ``imgs``, for each of ``dtypes``: the launch gates,
+    the loss and the running statistics against the base step's, each
+    step's time and peak memory. In fp32 a second base step shows the
+    card's own spread of the gradient, and each remat step's gradient is
+    held at batch 1 by ``hold_remat_gradient`` (at 256²: at 64² FlowNet2's
+    deepest BatchNorms see one value a channel, and rounding alone sets
+    the gradient)."""
+    loss_kwargs = default_loss_kwargs(name)
+    init = OpticalFlowReg(name, generator=torch.Generator().manual_seed(seed))
+    small = imgs[:1].cpu()
+    cpu = cpu_gradients(init, lambda st: make_train_step(st, loss_kwargs), small)
+    init.to(DEV)
+    base_small = batch1_distance(init, lambda st: make_train_step(st, loss_kwargs),
+                                 small, cpu[1][1])
+    for dname, dtype in dtypes:
+        runs = {}
+        modes = (None, "again", "full", "dots") if dtype is None else (None, "full", "dots")
+        for mode in modes:
+            remat = None if mode == "again" else mode
+            model = copy.deepcopy(init)
+            state = create_train_state(model)
+            step = make_train_step(state, loss_kwargs, dtype, remat=remat)
+            torch.cuda.synchronize()
+            reset_counts()
+            metrics = step(imgs)
+            torch.cuda.synchronize()
+            got = counts()
+            want = base_gate if remat is None else gate
+            label = f"{name} {dname} remat={remat}"
+            print(f"  {label}: launches in one step {got}")
+            require(got == want, f"{label} should launch {want}")
+            runs[mode] = (float(metrics["loss"]), batchnorm_stats(model),
+                          {n: p.grad.double().cpu() for n, p in model.named_parameters()})
+            if mode != "again":
+                runs[mode] += (step_times(f"{label} train step, batch {BATCH} at 256²",
+                                          lambda: step(imgs)),)
+            del model, state, step
+        loss, stats, grads, ms = runs[None]
+        if dtype is None:
+            whole, median, worst = gradient_distance(runs["again"][2], grads)
+            print(f"  {name} fp32: a second base step's gradient against the first's, "
+                  f"relative L2: whole model {whole:.3g}, per tensor median "
+                  f"{median:.3g}, worst {worst:.3g} (the card's own spread)")
+        for remat in ("full", "dots"):
+            rloss, rstats, rgrads, rms = runs[remat]
+            rel = abs(rloss / loss - 1)
+            # each statistic against the largest of its tensor (at least 1):
+            # a reduction's order may follow its input's address, so the
+            # same batch statistics can differ in the last bit between runs
+            diffs = [(float((rstats[k] - stats[k]).abs().max()),
+                      max(float(stats[k].abs().max()), 1.0)) for k in stats]
+            worst_abs = max((d for d, _ in diffs), default=0.0)
+            worst_rel = max((d / m for d, m in diffs), default=0.0)
+            print(f"  {name} {dname} remat={remat} against the base step: loss "
+                  f"{rloss:.9g} vs {loss:.9g}, {rel:.3g} relative (tolerance 1e-5); "
+                  f"running statistics over {len(stats)} tensors: max |diff| "
+                  f"{worst_abs:.3g}, relative to the tensor's largest value "
+                  f"{worst_rel:.3g} (tolerance 1e-6); step {rms:.3f} vs {ms:.3f} ms")
+            require(rel <= 1e-5, f"{name} {dname} remat={remat}: the loss moved")
+            require(worst_rel <= 1e-6,
+                    f"{name} {dname} remat={remat}: the running statistics moved")
+            if dtype is None:
+                whole, median, worst = gradient_distance(rgrads, grads)
+                print(f"    its fp32 gradient against the base step's, relative L2: "
+                      f"whole model {whole:.3g}, per tensor median {median:.3g}, "
+                      f"worst {worst:.3g}")
+                hold_remat_gradient(name, remat, init, loss_kwargs, small, cpu,
+                                    base_small)
+
+
+def batch1_distance(model, make_step, small, fp64):
+    """Relative L2 of one card step's fp32 gradient at batch 1 from the CPU's
+    fp64 one: (whole model, per tensor median, worst)."""
+    _, grads = gradients3d(copy.deepcopy(model), make_step, small.to(DEV))
+    return gradient_distance(grads, fp64)
+
+
+def hold_remat_gradient(name, remat, init, loss_kwargs, small, cpu, base_small):
+    """At batch 1, 256², the remat step's fp32 gradient on the card against
+    the CPU's fp64 one: no further than twice the further of the card's base
+    step and the CPU's fp32 step (phase 7's rule, with the base step on the
+    card beside the CPU: the recompute may take other cuDNN algorithms than
+    the forward, one more rounding of the activations the backward reads)."""
+    (_, _), (_, fp64) = cpu
+    got = batch1_distance(init, lambda st: make_train_step(st, loss_kwargs, remat=remat),
+                          small, fp64)
+    cpu32 = gradient_distance(cpu[0][1], fp64)
+    bound = [2 * max(a, b, 5e-6) for a, b in zip(base_small[:2], cpu32[:2])]
+    print(f"    batch 1 fp32 gradients against the CPU's fp64, relative L2 (whole "
+          f"model, per tensor median): remat={remat} {got[0]:.3g}, {got[1]:.3g}; card "
+          f"base step {base_small[0]:.3g}, {base_small[1]:.3g}; CPU fp32 {cpu32[0]:.3g}, "
+          f"{cpu32[1]:.3g} (tolerance twice the further: {bound[0]:.3g}, {bound[1]:.3g})")
+    require(got[0] <= bound[0] and got[1] <= bound[1],
+            f"{name} remat={remat}: the fp32 gradient is further from fp64 than the "
+            "base step's allows")
+
+
+def remat_path():
+    phase("8k(a). remat: FlowNet2 (fp32, bf16) and pwc-reg (fp32) train steps at "
+          "256², batch 8, with remat full and dots against the base step")
+    imgs, _ = phantom_batch(BATCH, SIZE, seed=6)
+    imgs = imgs.to(DEV)
+    remat_steps("flownet2", (("fp32", None), ("bf16", torch.bfloat16)),
+                TRAIN_LAUNCHES, REMAT_TRAIN_LAUNCHES, 1, imgs)
+    remat_steps("pwc-reg", (("fp32", None),), PWC_TRAIN_LAUNCHES,
+                PWC_REMAT_TRAIN_LAUNCHES, 22, imgs)
+
+
+def pretrained_and_native_paths(pair_dirs, train_dirs):
+    phase("8k(b, d, e). --pretrained with --surgery rgb_pair on phase 8's volumes; "
+          "the native Analyze decoder; the TensorBoard writer's warning")
+    lib = analyze.build_native()
+    print(f"  native Analyze decoder: {lib.name}, built with "
+          f"{' '.join(analyze.CXX_FLAGS)}")
+    paths = sorted(glob.glob(os.path.join(pair_dirs["fiximg"], "*.img"))
+                   + glob.glob(os.path.join(train_dirs["img"], "*.img")))
+    for path in paths:
+        got = analyze.read_analyze(path, use_native=True)
+        want = analyze.read_analyze(path, use_native=False)
+        require(got.dtype == want.dtype and np.array_equal(got, want),
+                f"{path}: the native decoder and numpy disagree")
+    print(f"  native decoder equal to numpy on {len(paths)} volumes")
+    decoded = {"n": 0}
+    native = analyze._load_native()
+    raw = native.analyze_decode
+
+    def counting_decode(*args):
+        decoded["n"] += 1
+        return raw(*args)
+
+    native.analyze_decode = counting_decode
+    stderr = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            sd = OpticalFlowReg("flownets", generator=torch.Generator().manual_seed(30)
+                                ).predictor.state_dict()
+            w = sd["conv1.0.weight"]
+            sd["conv1.0.weight"] = torch.cat([w[:, :1] / 3] * 3 + [w[:, 1:] / 3] * 3, 1)
+            ckpt = os.path.join(work, "flownets_rgb_pair.pt")
+            torch.save({"state_dict": sd}, ckpt)
+            n_tensors = sum(not k.endswith("num_batches_tracked") for k in sd)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(stderr):
+                state = cli_train.main([
+                    "--model", "flownets", "--img_dir", train_dirs["img"],
+                    "--seg_dir", train_dirs["seg"], "--batch_size", str(BATCH),
+                    "--epochs", "1", "--cp", "0", "--workdir", work, "--logdir",
+                    os.path.join(work, "log"), "--pretrained", ckpt,
+                    "--surgery", "rgb_pair"], device="cuda")
+            torch.cuda.synchronize()
+            line = f"imported {n_tensors} tensors (0 unmatched, 0 shape-mismatched)"
+            print(f"  training CLI --model flownets --pretrained --surgery rgb_pair: "
+                  f"{state.step} steps; {decoded['n']} volumes decoded natively")
+            for text in [line for line in out.getvalue().splitlines()
+                         if "imported" in line] + cli_summary(out.getvalue()):
+                print(f"    {text}")
+            require(line in out.getvalue(), f"the training CLI did not print {line!r}")
+            require(state.step == 80 and decoded["n"] >= 10,
+                    "the training CLI's steps or its native reads")
+            trained = dict(state.model.predictor.named_parameters())["conv1.0.weight"]
+            require(trained.shape == w.shape, "the collapsed stem's shape")
+            n_train = decoded["n"]
+            real_eval_cli("flownets", pair_dirs, work, FLOWNETS_EVAL_LAUNCHES)
+            require(decoded["n"] > n_train, "the inference CLI did not decode natively")
+            print(f"  inference CLI --mode real: {decoded['n'] - n_train} volumes "
+                  "decoded natively")
+    finally:
+        native.analyze_decode = raw
+    warnings = stderr.getvalue().count("WARNING: no TensorBoard backend available")
+    backends = []
+    for module in ("torch.utils.tensorboard", "tensorboardX"):
+        with contextlib.suppress(Exception):
+            __import__(module)
+            backends.append(module)
+    has_backend = bool(backends)
+    print(f"  TensorBoard backends importable on this machine: "
+          f"{', '.join(backends) or 'none'}; the training CLI's stderr held "
+          f"{warnings} warning(s)")
+    require(warnings == (0 if has_backend else 1),
+            "the TensorBoard writer's warning: one where no backend imports")
+
+
+def trace_path(eval_step, imgs, segs):
+    phase("8k(c). profiling.trace around one FlowNet2 eval step at 256², batch 8")
+    eval_step(imgs, segs)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir):
+            eval_step(imgs, segs)
+            torch.cuda.synchronize()
+        (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels)
+             for k in ("corr_fwd_kernel", "warp2d_fwd_kernel")}
+    print(f"  {os.path.basename(path)}: {size} bytes, {len(events)} events, "
+          f"{len(kernels)} device kernels; K1 (corr_fwd_kernel) {named['corr_fwd_kernel']}, "
+          f"K3 (warp2d_fwd_kernel) {named['warp2d_fwd_kernel']}")
+    require(all(named.values()), "the trace does not name K1's and K3's kernels")
+
+
 def kernel_row(name, source, replaces, counter, path, err, ms, plain, work,
                dtype, library):
     """One entry of the kernel table; ``launches`` is filled in from the
@@ -3078,9 +3320,13 @@ def main():
     raft_launches, raft_steps, raft_imgs, raft_segs = raft_path(pair_dirs, train_dirs)
     mark("RAFT")
     fns_launches, fns_steps, fns_imgs, fns_segs = flownets_path(pair_dirs, train_dirs)
+    mark("FlowNetS and the 2-D zoo")
+    remat_path()
+    pretrained_and_native_paths(pair_dirs, train_dirs)
+    trace_path(eval_steps["fp32"], imgs, segs)
     pairs.cleanup()
     train_vols.cleanup()
-    mark("FlowNetS and the 2-D zoo")
+    mark("A.6: remat, --pretrained, the native decoder, TensorBoard, trace")
     vol_steps = {"affine": affine_step, "deform": deform_step}
     kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                       vol_steps, vols, vflow, velocity)

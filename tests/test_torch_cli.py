@@ -1,6 +1,14 @@
 """The port's two CLIs on the CPU: training on random batches with its
 two checkpoint tiers and resume, evaluation in ``--mode synthetic`` on small
-Analyze volumes, and the training CLI's refusal without a card."""
+Analyze volumes, the TensorBoard tags each writes, and the training CLI's
+refusal without a card.
+
+The CLIs' TensorBoard writer is replaced by ``RecordingWriter`` (fixture
+``tb_records``), which keeps the tag, step and shape of each call: the
+tags are held against tpureg's, and no test pays for importing
+``torch.utils.tensorboard`` (which loads TensorFlow here, about 10 s a
+process).
+"""
 
 import os
 import shutil
@@ -9,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import tpureg_torch.utils.tb as tb
 from test_torch_elastic import write_analyze
 from tpureg_torch.reg import OpticalFlowReg
 from tpureg_torch.train import (
@@ -21,6 +30,91 @@ TRAIN_ARGS = ["--model", "flownet2", "--synthetic", "2", "--image_size", "64",
               "--batch_size", "2"]
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Torch on one thread for a module's tests: six test workers on eight
+    cores, each on every core, oversubscribe them (the FlowNet2 CLI test
+    below took 322 s in a whole run on 6 workers; alone 25.5 s on 8
+    threads, 36.7 s on one). Modules take it with
+    ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
+class RecordingWriter:
+    """Stands in for TensorBoard's ``SummaryWriter`` behind ``MetricWriter``:
+    keeps ``(kind, tag, step, detail)`` of each call (the members of a
+    scalar group, the shape of an image batch) and checks each value."""
+
+    def __init__(self, logdir):
+        self.logdir = logdir
+        self.calls = []
+        self.closed = False
+
+    def add_scalar(self, tag, value, step):
+        assert np.isfinite(value), (tag, value)
+        self.calls.append(("scalar", tag, step, None))
+
+    def add_scalars(self, tag, values, step):
+        assert all(np.isfinite(v) for v in values.values()), (tag, values)
+        self.calls.append(("scalars", tag, step, tuple(sorted(values))))
+
+    def add_images(self, tag, images, step):
+        assert images.ndim == 4, (tag, images.shape)
+        self.calls.append(("images", tag, step, images.shape))
+
+    def close(self):
+        self.closed = True
+
+    def tags(self):
+        """Each (kind, tag) in the order of its first call."""
+        return list(dict.fromkeys((kind, tag) for kind, tag, _, _ in self.calls))
+
+
+@pytest.fixture
+def tb_records(monkeypatch):
+    """The writers the CLIs make, as ``RecordingWriter``s, in order."""
+    writers = []
+
+    def make(logdir, flush_secs):
+        writers.append(RecordingWriter(logdir))
+        return writers[-1]
+
+    monkeypatch.setattr(tb, "_make_writer", make)
+    return writers
+
+
+# the training CLI's tags an epoch: tpureg/cli/train.py:341 (lr) and :365
+# (each loss term's train/val/test group)
+TRAIN_TAGS = [("scalar", "lr")] + [
+    ("scalars", t) for t in ("loss", "photo_loss", "corr_loss", "smooth_loss")]
+# the inference CLI's, a batch: tpureg/cli/inference.py:92-97 (the panels;
+# flow_mag needs OpenCV) and :100-101 (each metric's average and latest
+# value); then :189 (each loss term's eval group)
+EVAL_METRICS = ("dice", "mse", "psnr", "hausdorff", "ssim_img", "ssim_seg",
+                "mi", "corr", "mag", "neg_jac", "log_jac_std")
+EVAL_TAGS = ([("images", t) for t in ("fixed_img", "moving_img", "warped_img",
+                                      "warped_grid", "flow_mag")]
+             + [("scalar", f"{m}_{s}") for m in EVAL_METRICS
+                for s in ("avg", "single")]
+             + [("scalars", t) for t in ("loss", "photo_loss", "corr_loss",
+                                         "smooth_loss")])
+
+
+def eval_tags():
+    """EVAL_TAGS without the JET panel where OpenCV does not import."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return [t for t in EVAL_TAGS if t != ("images", "flow_mag")]
+    return EVAL_TAGS
+
+
 @pytest.fixture
 def work_path(tmp_path):
     """``tmp_path``, deleted when the test ends. A CLI test's checkpoints are
@@ -31,7 +125,7 @@ def work_path(tmp_path):
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
-def test_train_cli_writes_both_tiers_and_resumes(work_path, capsys):
+def test_train_cli_writes_both_tiers_and_resumes(work_path, capsys, tb_records):
     from tpureg_torch.cli.train import main
 
     work = str(work_path)
@@ -54,9 +148,16 @@ def test_train_cli_writes_both_tiers_and_resumes(work_path, capsys):
     assert "EPOCH 1/2" not in out and "EPOCH 2/2" in out
     assert state.step == 4
     assert os.path.getmtime(tiers[0]) > stamps[0]
+    # each run's writer: its epochs' tags, under --logdir, closed
+    assert [w.logdir for w in tb_records] == [str(work_path / "log")] * 2
+    for w, epochs in zip(tb_records, ([1], [2])):
+        assert w.closed and w.tags() == TRAIN_TAGS
+        assert sorted({step for *_, step, _ in w.calls}) == epochs
+        assert all(d == ("test", "train", "val") for k, _, _, d in w.calls
+                   if k == "scalars")
 
 
-def test_train_cli_halts_on_a_non_finite_loss(tmp_path, monkeypatch):
+def test_train_cli_halts_on_a_non_finite_loss(tmp_path, monkeypatch, tb_records):
     from tpureg_torch.cli import train as cli_train
 
     real = cli_train.make_train_step
@@ -68,11 +169,12 @@ def test_train_cli_halts_on_a_non_finite_loss(tmp_path, monkeypatch):
     monkeypatch.setattr(cli_train, "make_train_step", poisoned)
     with pytest.raises(FloatingPointError, match="non-finite loss"):
         cli_train.main(TRAIN_ARGS + ["--epochs", "1", "--cp", "0", "--workdir",
-                                     str(tmp_path)], device="cpu")
+                                     str(tmp_path), "--logdir",
+                                     str(tmp_path / "log")], device="cpu")
     assert not os.path.exists(training_state_path(str(tmp_path), "FlowNet2"))
 
 
-def test_inference_cli_synthetic_mode_runs_on_cpu(work_path, capsys):
+def test_inference_cli_synthetic_mode_runs_on_cpu(work_path, capsys, tb_records):
     from tpureg_torch.cli.inference import main
 
     rng = np.random.default_rng(5)
@@ -99,6 +201,12 @@ def test_inference_cli_synthetic_mode_runs_on_cpu(work_path, capsys):
     assert "[EVAL batch 001/160]" in out and "===> EVAL summary" in out
     for key in ("loss", "dice", "mse", "psnr", "ssim_img", "mag", "neg_jac"):
         assert key in results and np.isfinite(results[key]), key
+    (w,) = tb_records
+    assert w.closed and w.tags() == eval_tags()
+    assert {step for kind, _, step, _ in w.calls if kind != "scalars"} == {1, 2}
+    assert all(d == ("eval",) for k, _, _, d in w.calls if k == "scalars")
+    panels = [d for k, _, step, d in w.calls if k == "images" and step == 1]
+    assert all(d[0] == 1 and d[2:] == (256, 256) for d in panels)
 
 
 def test_train_cli_refuses_a_missing_card(monkeypatch, tmp_path):

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from test_torch_refcache import refcache  # noqa: F401 (a fixture)
 from test_torch_zoo import SIZE, BATCH, numpy_variables, pair_batch, port_head, rel_l2
 from tpureg.reg import OpticalFlowReg as JaxOpticalFlowReg
 from tpureg.train import make_flow_supervised_step as jax_make_flow_supervised_step
@@ -99,11 +100,15 @@ def test_stn_inverse_target_undoes_the_synthesis_warp():
 
 
 @pytest.fixture(scope="module")
-def steps():
+def steps(refcache):  # noqa: F811
     """Per unit: one tpureg step in fp64 and one port step in fp32 from the
     same flownets weights, statistics and fresh Adam state (tpureg's
     metrics, gradient and updated state dict; the port's; the state dict
-    before)."""
+    before). Once a session."""
+    return refcache("flow_supervised_steps", _steps)
+
+
+def _steps():
     imgs, _ = pair_batch(4, BATCH, SIZE)
     disp = smooth_disp(5, BATCH, SIZE, SIZE)
     params, stats = numpy_variables(JaxOpticalFlowReg(conv_predictor="flownets"),

@@ -23,6 +23,8 @@ from tpureg.models import FlowNetFusion as JaxFlowNetFusion
 from tpureg.models import FlowNetS as JaxFlowNetS
 from tpureg.models import FlowNetSD as JaxFlowNetSD
 from tpureg.reg import OpticalFlowReg as JaxOpticalFlowReg
+from test_torch_cli import one_torch_thread  # noqa: F401 (a fixture)
+from test_torch_refcache import refcache  # noqa: F401 (a fixture)
 from tpureg_torch.compat import state_dict_from_jax
 from tpureg_torch.models import (
     FlowNet2,
@@ -31,6 +33,10 @@ from tpureg_torch.models import (
     FlowNetS,
     FlowNetSD,
 )
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 SIZE = 64
 
@@ -95,15 +101,19 @@ def test_subnet_eval_forward_matches_tpureg(name):
 
 
 @pytest.fixture(scope="module")
-def flownet2_trees():
-    """tpureg's registration head around FlowNet2, initialised at 64²."""
-    x = jnp.zeros((1, SIZE, SIZE, 2), jnp.float32)
-    model = JaxOpticalFlowReg(conv_predictor="flownet2")
-    variables = jax.jit(lambda k, a: model.init(k, a, train=True))(
-        jax.random.key(0), x)
-    params = _numpy_tree(variables["params"])
-    stats = _random_stats(_numpy_tree(variables["batch_stats"]), 1)
-    return params, stats
+def flownet2_trees(refcache):  # noqa: F811
+    """tpureg's registration head around FlowNet2, initialised at 64² (once a
+    session)."""
+    def compute():
+        x = jnp.zeros((1, SIZE, SIZE, 2), jnp.float32)
+        model = JaxOpticalFlowReg(conv_predictor="flownet2")
+        variables = jax.jit(lambda k, a: model.init(k, a, train=True))(
+            jax.random.key(0), x)
+        params = _numpy_tree(variables["params"])
+        stats = _random_stats(_numpy_tree(variables["batch_stats"]), 1)
+        return params, stats
+
+    return refcache("flownet2_trees_64", compute)
 
 
 def test_bridge_fills_flownet2_strictly(flownet2_trees):

@@ -23,9 +23,14 @@ import tpureg_torch.models.flownet_c as port_flownet_c
 from tpureg.models import AffineNet3D as JaxAffineNet3D
 from tpureg.models import VoxelMorph3D as JaxVoxelMorph3D
 from tpureg.models.affine3d import affine_warp3d as jax_affine_warp3d
+from test_torch_cli import one_torch_thread  # noqa: F401 (a fixture)
 from tpureg_torch.compat import state_dict_from_jax_3d
 from tpureg_torch.models import AffineNet3D, VoxelMorph3D, affine_warp3d
 from tpureg_torch.nn import layers, leaky_relu
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 SIZE = (16, 32, 32)
 

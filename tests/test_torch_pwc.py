@@ -21,7 +21,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from test_torch_cli import work_path  # noqa: F401 (a fixture)
+from test_torch_refcache import refcache  # noqa: F401 (a fixture)
+from test_torch_cli import TRAIN_TAGS, eval_tags, tb_records, work_path  # noqa: F401
 from test_torch_elastic import write_analyze
 from tpureg.compat.torch_export import export_torch_state_dict
 from tpureg.models import PWCDCNetOld as JaxPWCDCNetOld
@@ -296,17 +297,20 @@ def assert_close(got, want, err_msg=""):
 
 
 @pytest.fixture(scope="module")
-def head_outputs(trees):
+def head_outputs(refcache, trees):  # noqa: F811
     """tpureg's head around pwc and pwc-reg on one batch, in eval and train
-    mode (one compile a model), and the batch."""
-    imgs, segs = pair_batch(1, BATCH, SIZE)
-    out = {}
-    for name in ("pwc", "pwc-reg"):
-        jmodel = JaxOpticalFlowReg(conv_predictor=name)
-        out[name] = jax.jit(lambda p, a, s: tuple(
-            jmodel.apply({"params": p}, a, s, train=t) for t in (False, True)))(
-            trees[name], jnp.asarray(imgs), jnp.asarray(segs))
-    return out, imgs, segs
+    mode (one compile a model, once a session), and the batch."""
+    def compute():
+        imgs, segs = pair_batch(1, BATCH, SIZE)
+        out = {}
+        for name in ("pwc", "pwc-reg"):
+            jmodel = JaxOpticalFlowReg(conv_predictor=name)
+            out[name] = jax.jit(lambda p, a, s: tuple(
+                jmodel.apply({"params": p}, a, s, train=t) for t in (False, True)))(
+                trees[name], jnp.asarray(imgs), jnp.asarray(segs))
+        return out, imgs, segs
+
+    return refcache("pwc_head_outputs", compute)
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
@@ -329,14 +333,18 @@ def test_head_forward_matches_tpureg(trees, head_outputs, name, train):
 
 
 @pytest.fixture(scope="module")
-def old_outputs(trees):
+def old_outputs(refcache, trees):  # noqa: F811
     """tpureg's PWCDCNetOld on a 6-channel pair in eval and train mode (one
-    compile), and the pair."""
-    x = np.random.default_rng(8).uniform(0, 1, (1, SIZE, SIZE, 6)).astype(np.float32)
-    want = jax.jit(lambda p, a: tuple(
-        JaxPWCDCNetOld().apply({"params": p}, a, train=t) for t in (False, True)))(
-        trees["pwc-old"], jnp.asarray(x))
-    return want, x
+    compile, once a session), and the pair."""
+    def compute():
+        x = np.random.default_rng(8).uniform(0, 1, (1, SIZE, SIZE, 6)).astype(
+            np.float32)
+        want = jax.jit(lambda p, a: tuple(
+            JaxPWCDCNetOld().apply({"params": p}, a, train=t) for t in (False, True)))(
+            trees["pwc-old"], jnp.asarray(x))
+        return want, x
+
+    return refcache("pwc_old_outputs", compute)
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
@@ -389,11 +397,16 @@ def jax_state(params, tx=None):
 
 
 @pytest.fixture(scope="module")
-def train_steps(trees):
+def train_steps(refcache, trees):  # noqa: F811
     """One tpureg step in fp64 and one port step in fp32 from the same
     pwc-reg weights and a fresh Adam state: (tpureg's metrics, gradient and
     updated weights as port state dicts; the port's metrics, gradient and
-    updated weights; the weights before)."""
+    updated weights; the weights before). Once a session."""
+    return refcache("pwc_reg_train_steps",
+                          lambda: _train_steps(trees))
+
+
+def _train_steps(trees):
     imgs, _ = pair_batch(2, BATCH, SIZE)
     params = trees["pwc-reg"]
     with jax.enable_x64(True):
@@ -512,7 +525,7 @@ def test_bf16_eval_step_matches_tpureg(trees):
 # ---------------------------------------------------------------------------
 # both 2-D CLIs
 
-def test_cli_trains_resumes_and_evaluates_pwc_reg(work_path, capsys):
+def test_cli_trains_resumes_and_evaluates_pwc_reg(work_path, capsys, tb_records):  # noqa: F811
     """The training CLI trains pwc-reg on 2 random batches at 64², writes its
     state and best weights under ``PWCDCNet``, resumes with ``--cp 1``; the
     inference CLI loads those weights and scores ``--mode synthetic``."""
@@ -556,3 +569,6 @@ def test_cli_trains_resumes_and_evaluates_pwc_reg(work_path, capsys):
     assert "loaded best weights" in out and "===> EVAL summary" in out
     for key in ("loss", "dice", "mse", "psnr", "ssim_img", "mag", "neg_jac"):
         assert key in results and np.isfinite(results[key]), key
+    # two training runs and one evaluation, each with tpureg's tags
+    assert [w.tags() for w in tb_records] == [TRAIN_TAGS, TRAIN_TAGS, eval_tags()]
+    assert all(w.closed for w in tb_records)

@@ -23,7 +23,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from test_torch_cli import work_path  # noqa: F401 (a fixture)
+from test_torch_refcache import refcache  # noqa: F401 (a fixture)
+from test_torch_cli import TRAIN_TAGS, eval_tags, tb_records, work_path  # noqa: F401
 from test_torch_elastic import write_analyze
 from tpureg.losses.ofe import OFEloss as jax_OFEloss
 from tpureg.models import FlowNet2 as JaxFlowNet2
@@ -291,17 +292,20 @@ def assert_close(got, want, err_msg=""):
 
 
 @pytest.fixture(scope="module")
-def head_outputs(trees):
+def head_outputs(refcache, trees):  # noqa: F811
     """tpureg's head around raft-reg and raft in eval and train mode (one
-    compile a model), and the batches."""
-    out = {}
-    for name, size in SIZES.items():
-        imgs, segs = pair_batch(1, BATCH, size)
-        jmodel = JaxOpticalFlowReg(conv_predictor=name)
-        out[name] = (jax.jit(lambda p, a, s: tuple(
-            jmodel.apply({"params": p}, a, s, train=t) for t in (False, True)))(
-            trees[name], jnp.asarray(imgs), jnp.asarray(segs)), imgs, segs)
-    return out
+    compile a model, once a session), and the batches."""
+    def compute():
+        out = {}
+        for name, size in SIZES.items():
+            imgs, segs = pair_batch(1, BATCH, size)
+            jmodel = JaxOpticalFlowReg(conv_predictor=name)
+            out[name] = (jax.jit(lambda p, a, s: tuple(
+                jmodel.apply({"params": p}, a, s, train=t) for t in (False, True)))(
+                trees[name], jnp.asarray(imgs), jnp.asarray(segs)), imgs, segs)
+        return out
+
+    return refcache("raft_head_outputs", compute)
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
@@ -335,11 +339,16 @@ def jax_state(params, module):
 
 
 @pytest.fixture(scope="module")
-def train_steps(trees):
+def train_steps(refcache, trees):  # noqa: F811
     """One tpureg step in fp64 and one port step in fp32 from the same
     raft-reg weights (2 iterations on both sides) and a fresh Adam state:
     (tpureg's metrics, gradient and updated weights as port state dicts;
-    the port's; the weights before)."""
+    the port's; the weights before). Once a session."""
+    return refcache("raft_reg_train_steps",
+                          lambda: _train_steps(trees))
+
+
+def _train_steps(trees):
     imgs, _ = pair_batch(2, BATCH, SIZES["raft-reg"])
     params = trees["raft-reg"]
     with jax.enable_x64(True):
@@ -465,7 +474,7 @@ def test_ofe_loss_weight_order_matches_tpureg(order):
 # ---------------------------------------------------------------------------
 # both 2-D CLIs
 
-def test_cli_trains_resumes_and_evaluates_raft_reg(work_path, capsys):
+def test_cli_trains_resumes_and_evaluates_raft_reg(work_path, capsys, tb_records):  # noqa: F811
     """The training CLI trains raft-reg on 2 random batches at 64², writes
     its state and best weights under ``RAFT``, resumes with ``--cp 1``; the
     inference CLI loads those weights and scores ``--mode synthetic``."""
@@ -508,3 +517,6 @@ def test_cli_trains_resumes_and_evaluates_raft_reg(work_path, capsys):
     assert "loaded best weights" in out and "===> EVAL summary" in out
     for key in ("loss", "dice", "mse", "psnr", "ssim_img", "mag", "neg_jac"):
         assert key in results and np.isfinite(results[key]), key
+    # two training runs and one evaluation, each with tpureg's tags
+    assert [w.tags() for w in tb_records] == [TRAIN_TAGS, TRAIN_TAGS, eval_tags()]
+    assert all(w.closed for w in tb_records)

@@ -17,13 +17,18 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_cli import work_path  # noqa: F401 (a fixture)
+from test_torch_refcache import refcache  # noqa: F401 (a fixture)
+from test_torch_cli import eval_tags, tb_records, work_path, one_torch_thread  # noqa: F401 (fixtures)
 from tpureg.reg import OpticalFlowReg as JaxOpticalFlowReg
 from tpureg.train import create_train_state
 from tpureg.train import make_eval_step as jax_make_eval_step
 from tpureg_torch.compat import state_dict_from_jax
 from tpureg_torch.reg import OpticalFlowReg
 from tpureg_torch.train import make_eval_step, save_best_weights
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SIZE = 64
@@ -55,8 +60,13 @@ def _pair_batch(seed, b, size):
 
 
 @pytest.fixture(scope="module")
-def eval_pair():
-    """tpureg's and the port's eval step on one batch, same weights."""
+def eval_pair(refcache):  # noqa: F811
+    """tpureg's and the port's eval step on one batch, same weights (once a
+    session)."""
+    return refcache("flownet2_eval_pair", _eval_pair)
+
+
+def _eval_pair():
     imgs, segs = _pair_batch(0, 2, SIZE)
     model = JaxOpticalFlowReg(conv_predictor="flownet2")
     state = create_train_state(model, jax.random.key(0), jnp.asarray(imgs))
@@ -160,7 +170,7 @@ def _phantom(rng, shape=(40, 48, 142)):
     return img.astype(np.int16), seg.astype(np.int16)
 
 
-def test_inference_cli_runs_on_cpu(work_path, capsys):
+def test_inference_cli_runs_on_cpu(work_path, capsys, tb_records):  # noqa: F811
     from tpureg_torch.cli.inference import main
 
     rng = np.random.default_rng(0)
@@ -190,6 +200,8 @@ def test_inference_cli_runs_on_cpu(work_path, capsys):
                 "mse", "psnr", "hausdorff", "ssim_img", "ssim_seg", "mi",
                 "corr", "mag", "neg_jac", "log_jac_std"):
         assert key in results and np.isfinite(results[key]), key
+    (w,) = tb_records
+    assert w.closed and w.tags() == eval_tags() and w.logdir == str(work_path / "log")
 
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):

@@ -26,6 +26,8 @@ import optax
 import pytest
 import torch
 
+import tpureg.utils.tb as jax_tb
+from test_torch_cli import RecordingWriter, tb_records, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_elastic import write_analyze
 from tpureg.classical import syn as jsyn
 from tpureg.classical import syn3d as jsyn3d
@@ -33,6 +35,9 @@ from tpureg.ops.elastic import rand_elastic_2d
 from tpureg.ops.warp import warp3d as jwarp3d
 from tpureg_torch.classical import syn as tsyn
 from tpureg_torch.classical import syn3d as tsyn3d
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _torch(x):
@@ -344,30 +349,46 @@ def _real_args(dirs, tmp_path):
 METRICS = ("dice", "mse", "psnr", "hausdorff", "ssim_img", "ssim_seg", "mi", "corr")
 
 
-def test_comparator_cli_synthetic_mode_runs_on_cpu(pair_dirs, capsys):
+# the comparator CLI's TensorBoard tags, a batch: each metric's average and
+# latest value (tpureg/cli/inference_ants.py:142-143)
+ANTS_TAGS = [("scalar", f"{m}_{s}") for m in METRICS for s in ("avg", "single")]
+
+
+def test_comparator_cli_synthetic_mode_runs_on_cpu(pair_dirs, capsys, tb_records,  # noqa: F811
+                                                   tmp_path):
     from tpureg_torch.cli.inference_ants import main
 
     results = main(["--mode", "synthetic", "--img_dir", pair_dirs["movimg"],
-                    "--seg_dir", pair_dirs["movseg"], "--max_samples", "2"],
-                   device="cpu")
+                    "--seg_dir", pair_dirs["movseg"], "--max_samples", "2",
+                    "--logdir", str(tmp_path / "log")], device="cpu")
     out = capsys.readouterr().out
     assert "classical backend: torch" in out
     assert "[CLASSICAL 001/160]" in out and "===> CLASSICAL summary" in out
     assert set(results) == set(METRICS)
     assert all(np.isfinite(v) for v in results.values())
     assert 0.5 < results["dice"] <= 1.0
+    (w,) = tb_records
+    assert w.closed and w.tags() == ANTS_TAGS
+    assert {step for *_, step, _ in w.calls} == {1, 2}
 
 
-def test_comparator_cli_real_mode_matches_tpureg(pair_dirs, tmp_path):
+def test_comparator_cli_real_mode_matches_tpureg(pair_dirs, tmp_path, monkeypatch,
+                                                 tb_records):  # noqa: F811
     """The same fixture pairs through both CLIs: no randomness in this mode,
     so every metric agrees up to the registration's rounding (mean Dice
-    measured 1.5e-5 apart over 3 pairs)."""
+    measured 1.5e-5 apart over 3 pairs), and each writes the same
+    TensorBoard calls."""
     from tpureg.cli.inference_ants import main as jmain
     from tpureg_torch.cli.inference_ants import main
 
+    jax_writers = []
+    monkeypatch.setattr(jax_tb, "_make_writer", lambda logdir, flush_secs:
+                        jax_writers.append(RecordingWriter(logdir)) or jax_writers[-1])
     args = _real_args(pair_dirs, tmp_path)
     got = main(args, device="cpu")
     want = jmain(args + ["--backend", "jax"])
+    (w,), (jw,) = tb_records, jax_writers
+    assert w.tags() == ANTS_TAGS and w.calls == jw.calls
     assert set(got) == set(want) == set(METRICS)
     assert abs(got["dice"] - want["dice"]) <= 1e-3, (got["dice"], want["dice"])
     for k in METRICS:

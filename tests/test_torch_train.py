@@ -13,8 +13,11 @@ in fp32 behind the U(0, 1)-biased i_conv blocks. The port's fp32 gradient lies
 fp32 even under x64, so the fp64 sides agree to 7.4e-4, not to fp64's
 precision.
 
-tpureg's steps run once, in module-scoped fixtures: their init and compile
-take about a minute here.
+tpureg's flax initialisation and its three fp64 steps run once a test
+session (the ``refcache`` fixture of tests/test_torch_refcache.py): every
+worker that draws a test of this module shares them, where each used to
+compute them again (about 520 s each, in two workers, of the whole suite's
+run on 6 workers). Torch runs on one thread here.
 """
 
 import numpy as np
@@ -26,9 +29,12 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from test_torch_cli import one_torch_thread  # noqa: F401 (a fixture)
+from test_torch_refcache import refcache  # noqa: F401 (a fixture)
 from tpureg.reg import OpticalFlowReg as JaxOpticalFlowReg
 from tpureg.train import create_train_state as jax_create_train_state
 from tpureg.train import make_train_step as jax_make_train_step
+from tpureg.train.state import RegTrainState
 from tpureg_torch.compat import load_adam_state_from_jax, state_dict_from_jax
 from tpureg_torch.reg import OpticalFlowReg
 from tpureg_torch.train import (
@@ -158,33 +164,53 @@ def assert_stats_close(got_sd, want_sd):
             assert err <= 1e-5, (k, float(err))
 
 
-@pytest.fixture(scope="module")
-def jax_init():
-    """The batch and tpureg's fp32 parameters and statistics at its flax
-    initialisation, in a train state whose Adam state is left out (the
-    tests make their own)."""
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
+def flax_init():
+    """The batch and tpureg's parameters and statistics at its flax
+    initialisation (``create_train_state``), as numpy trees."""
     imgs = pair_batch(0, BATCH, SIZE)
     model = JaxOpticalFlowReg(conv_predictor="flownet2")
     state = jax_create_train_state(model, jax.random.key(0), jnp.asarray(imgs))
+    return imgs, host_state(state, adam=False)
+
+
+@pytest.fixture(scope="module")
+def jax_init(refcache):  # noqa: F811
+    """The batch and tpureg's fp32 parameters and statistics at its flax
+    initialisation, in a train state whose Adam state is left out (the
+    tests make their own): ``create_train_state``'s, rebuilt around the
+    session's one initialisation."""
+    imgs, snap = refcache("flownet2_flax_init", flax_init)
+    state = RegTrainState.create(
+        apply_fn=JaxOpticalFlowReg(conv_predictor="flownet2").apply,
+        params=jax.tree.map(jnp.asarray, snap["params"]),
+        batch_stats=jax.tree.map(jnp.asarray, snap["stats"]),
+        tx=optax.adam(1e-4, b1=0.9, b2=0.999, eps=1e-4))
     return imgs, state.replace(opt_state=None)
 
 
 @pytest.fixture(scope="module")
-def jax_run(jax_init):
+def jax_run(refcache, jax_init):  # noqa: F811
     """tpureg in fp64: three steps on one batch; fp32 snapshots of the
     parameters and statistics before and after each step (with Adam's state
-    after steps 1 and 2), and each step's metrics."""
-    imgs, state = jax_init
-    snaps, metrics = {0: host_state(state, adam=False)}, []
-    with jax.enable_x64(True):
-        state = x64_state(state)
-        step = jax_make_train_step(donate=False)
-        x = jnp.asarray(imgs, jnp.float64)
-        for i in (1, 2, 3):
-            state, m = step(state, x)
-            metrics.append({k: float(m[k]) for k in TERMS})
-            snaps[i] = host_state(state, adam=i < 3)
-    return imgs, snaps, metrics
+    after steps 1 and 2), and each step's metrics. Computed once a
+    session."""
+    def run():
+        imgs, state = jax_init
+        snaps, metrics = {0: host_state(state, adam=False)}, []
+        with jax.enable_x64(True):
+            state = x64_state(state)
+            step = jax_make_train_step(donate=False)
+            x = jnp.asarray(imgs, jnp.float64)
+            for i in (1, 2, 3):
+                state, m = step(state, x)
+                metrics.append({k: float(m[k]) for k in TERMS})
+                snaps[i] = host_state(state, adam=i < 3)
+        return imgs, snaps, metrics
+
+    return refcache("flownet2_fp64_run", run)
 
 
 def sd_of(snap):

@@ -41,6 +41,7 @@ from tpureg.models import AffineNet3D as JaxAffineNet3D
 from tpureg.models import VoxelMorph3D as JaxVoxelMorph3D
 from tpureg.train.steps import make_affine_train_step as jax_affine_step
 from tpureg.train.steps import make_deform3d_train_step as jax_deform_step
+from test_torch_cli import tb_records, one_torch_thread  # noqa: F401 (fixtures)
 from test_torch_elastic import write_analyze
 from test_torch_models3d import blob_pair
 from tpureg_torch.compat import state_dict_from_jax_3d
@@ -52,6 +53,10 @@ from tpureg_torch.train import (
     make_affine_train_step,
     make_deform3d_train_step,
 )
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SIZE, BATCH, LR = (16, 32, 32), 2, 1e-4
@@ -259,11 +264,12 @@ def test_volume_dataset_split_and_batches(tmp_path):
 # the CLI
 
 @pytest.mark.parametrize("stage_name", ["affine", "deform"])
-def test_train_affine_cli_on_cpu(stage_name, capsys):
+def test_train_affine_cli_on_cpu(stage_name, capsys, tb_records, tmp_path):  # noqa: F811
     from tpureg_torch.cli.train_affine import main
 
     state = main(["--stage", stage_name, "--synthetic", "1", "--epochs", "2",
-                  "--volume_size", "16,16,16", "--batch_size", "1"], device="cpu")
+                  "--volume_size", "16,16,16", "--batch_size", "1",
+                  "--logdir", str(tmp_path / "log")], device="cpu")
     out = capsys.readouterr().out
     tag = "DEFORM" if stage_name == "deform" else "AFFINE"
     lines = [line for line in out.splitlines() if line.startswith(f"[{tag} epoch")]
@@ -273,6 +279,12 @@ def test_train_affine_cli_on_cpu(stage_name, capsys):
     assert state.step == 2
     assert state.optimizer.param_groups[0]["eps"] == 1e-8
     assert isinstance(state.model, VoxelMorph3D if stage_name == "deform" else AffineNet3D)
+    # each epoch's averages as <stage>_<metric> (tpureg/cli/train_affine.py:126)
+    terms = ("loss", "photo_loss", "corr_loss") + (
+        ("smooth_loss",) if stage_name == "deform" else ())
+    (w,) = tb_records
+    assert w.closed and w.tags() == [("scalar", f"{tag.lower()}_{k}") for k in terms]
+    assert sorted({step for *_, step, _ in w.calls}) == [1, 2]
 
 
 def test_train_affine_cli_refusals(monkeypatch):
@@ -285,15 +297,19 @@ def test_train_affine_cli_refusals(monkeypatch):
         main(["--synthetic", "1"])
 
 
-def test_train_affine_cli_runs_with_jax_blocked():
-    """The port trains with JAX and tpureg unimportable."""
+def test_train_affine_cli_runs_with_jax_blocked(tmp_path):
+    """The port trains with JAX and tpureg unimportable, and without a
+    TensorBoard package, as on the card's machine (its writer warns once
+    and writes nothing)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'tpureg'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'tpureg',\n"
+        "          'torch.utils.tensorboard', 'tensorboardX'):\n"
         "    sys.modules[m] = None\n"
         "from tpureg_torch.cli.train_affine import main\n"
         "s = main(['--stage', 'affine', '--synthetic', '1', '--epochs', '1',\n"
-        "          '--volume_size', '16,16,16', '--batch_size', '1'], device='cpu')\n"
+        "          '--volume_size', '16,16,16', '--batch_size', '1',\n"
+        f"          '--logdir', {str(tmp_path / 'log')!r}], device='cpu')\n"
         "assert s.step == 1\n"
         "print('ok')\n"
     )
@@ -302,3 +318,5 @@ def test_train_affine_cli_runs_with_jax_blocked():
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("ok")
+    assert res.stderr.count("WARNING: no TensorBoard backend available") == 1
+    assert not (tmp_path / "log").exists()

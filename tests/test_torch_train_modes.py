@@ -5,11 +5,14 @@ they sit in a file of their own, which another test worker can take.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
 
+from test_torch_cli import one_torch_thread  # noqa: F401 (a fixture)
+from test_torch_refcache import refcache  # noqa: F401 (a fixture)
 from test_torch_train import (  # noqa: F401 (jax_init is a fixture)
     TERMS,
     assert_stats_close,
@@ -23,6 +26,9 @@ from test_torch_train import (  # noqa: F401 (jax_init is a fixture)
     x64_state,
 )
 from tpureg_torch.train import make_train_step
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_accumulated_step_matches_tpureg(jax_init):

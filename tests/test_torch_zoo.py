@@ -22,7 +22,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from test_torch_cli import work_path  # noqa: F401 (a fixture)
+from test_torch_refcache import refcache  # noqa: F401 (a fixture)
+from test_torch_cli import TRAIN_TAGS, eval_tags, tb_records, work_path  # noqa: F401
 from test_torch_elastic import write_analyze
 from tpureg.compat.torch_export import export_torch_state_dict
 from tpureg.models import FlowNetCPinard as JaxFlowNetCPinard
@@ -265,9 +266,9 @@ HEAD_CASES = [(n, t) for n in HEAD_NAMES for t in MODES[n]]
 
 
 @pytest.fixture(scope="module")
-def head_outputs(trees):
+def head_outputs(refcache, trees):  # noqa: F811
     """tpureg's head around each model on one batch, in the modes of MODES
-    (one compile a model, on first use), and the batch."""
+    (one compile a model, on first use, once a session), and the batch."""
     imgs, segs = pair_batch(1, BATCH, SIZE)
 
     def run(params, stats, a, s, train, jmodel):
@@ -278,9 +279,9 @@ def head_outputs(trees):
 
     def make(name):
         jmodel = JaxOpticalFlowReg(conv_predictor=name)
-        return jax.jit(lambda p, st, a, s: tuple(
-            run(p, st, a, s, t, jmodel) for t in MODES[name]))(
-            *trees[name], jnp.asarray(imgs), jnp.asarray(segs))
+        return refcache(f"zoo_head_{name}", lambda: jax.jit(
+            lambda p, st, a, s: tuple(run(p, st, a, s, t, jmodel) for t in MODES[name]))(
+            *trees[name], jnp.asarray(imgs), jnp.asarray(segs)))
 
     return Lazy(make), imgs, segs
 
@@ -323,18 +324,21 @@ def test_head_forward_matches_tpureg(trees, head_outputs, name, train):
 
 
 @pytest.fixture(scope="module")
-def pinard_c_outputs(trees):
+def pinard_c_outputs(refcache, trees):  # noqa: F811
     """tpureg's FlowNetCPinard on a 6-channel pair in eval and train mode
-    (one compile), and the pair."""
-    x = np.random.default_rng(8).uniform(0, 1, (BATCH, SIZE, SIZE, 6)).astype(
-        np.float32)
-    params, stats = trees["flownetc-pinard"]
-    net = JaxFlowNetCPinard()
-    v = {"params": params, "batch_stats": stats}
-    want = jax.jit(lambda v, a: (
-        net.apply(v, a, train=False),
-        net.apply(v, a, train=True, mutable=["batch_stats"])[0]))(v, jnp.asarray(x))
-    return want, x
+    (one compile, once a session), and the pair."""
+    def compute():
+        x = np.random.default_rng(8).uniform(0, 1, (BATCH, SIZE, SIZE, 6)).astype(
+            np.float32)
+        params, stats = trees["flownetc-pinard"]
+        net = JaxFlowNetCPinard()
+        v = {"params": params, "batch_stats": stats}
+        want = jax.jit(lambda v, a: (
+            net.apply(v, a, train=False),
+            net.apply(v, a, train=True, mutable=["batch_stats"])[0]))(v, jnp.asarray(x))
+        return want, x
+
+    return refcache("zoo_pinard_c_outputs", compute)
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
@@ -370,11 +374,16 @@ def jax_state(params, stats, tx=None):
 
 
 @pytest.fixture(scope="module")
-def train_steps(trees):
+def train_steps(refcache, trees):  # noqa: F811
     """One tpureg step in fp64 and one port step in fp32 from the same
     flownets weights and statistics and a fresh Adam state: (tpureg's
     metrics, gradient and updated state as port state dicts; the port's;
-    the state dict before)."""
+    the state dict before). Once a session."""
+    return refcache("zoo_flownets_train_steps",
+                          lambda: _train_steps(trees))
+
+
+def _train_steps(trees):
     imgs, _ = pair_batch(2, BATCH, SIZE)
     params, stats = trees["flownets"]
     with jax.enable_x64(True):
@@ -513,7 +522,7 @@ def test_correlation_loss_gradient_is_finite_at_a_constant_scale():
 # ---------------------------------------------------------------------------
 # both 2-D CLIs
 
-def test_cli_trains_resumes_and_evaluates_flownets(work_path, capsys):
+def test_cli_trains_resumes_and_evaluates_flownets(work_path, capsys, tb_records):  # noqa: F811
     """The training CLI trains flownets on 2 random batches at 64², writes
     its state and best weights under ``FlowNetS``, resumes with ``--cp 1``;
     the inference CLI loads those weights and scores ``--mode synthetic``."""
@@ -557,3 +566,6 @@ def test_cli_trains_resumes_and_evaluates_flownets(work_path, capsys):
     assert "loaded best weights" in out and "===> EVAL summary" in out
     for key in ("loss", "dice", "mse", "psnr", "ssim_img", "mag", "neg_jac"):
         assert key in results and np.isfinite(results[key]), key
+    # two training runs and one evaluation, each with tpureg's tags
+    assert [w.tags() for w in tb_records] == [TRAIN_TAGS, TRAIN_TAGS, eval_tags()]
+    assert all(w.closed for w in tb_records)

@@ -8,10 +8,13 @@ registration head and its loss over real inter-subject pairs
 per-sample metric suite: Dice, MSE, PSNR,
 SSIM (image and seg), modified Hausdorff, MI, Pearson correlation, the flow
 magnitude and the Jacobian statistics. It prints tpureg's per-batch line and
-``EVAL summary``. Runs on the card unless ``device="cpu"`` is passed.
-
-Not yet ported: the TensorBoard panels; ``--logdir`` is accepted for flag
-compatibility and nothing is written there yet.
+``EVAL summary``. Under ``--logdir`` it writes tpureg's TensorBoard layout
+(inference.py:77-100): each batch's fixed, moving, warped and warped-grid
+panels and the flow magnitude's JET panel (which needs OpenCV and is left
+out where ``cv2`` does not import; the ``mag`` scalar is kept), each
+metric's running average and latest value as ``<metric>_avg`` and
+``<metric>_single``, and the loss terms' averages as the ``eval`` member of
+one group each. Runs on the card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..metrics import (
     PSNR,
     dice_average,
     dist_hausdorff,
+    flow_mag,
     flow_mag_sum,
     log_jacobian_std,
     neg_jacobian_fraction,
@@ -38,6 +42,7 @@ from ..metrics import (
 from ..reg import OpticalFlowReg
 from ..train import default_loss_kwargs, load_best_weights, make_eval_step
 from ..utils import AverageMeter, resolve_device
+from ..utils.tb import MetricWriter
 
 PRINT_INTERVAL = 2
 
@@ -45,8 +50,18 @@ METRICS = ("dice", "mse", "psnr", "hausdorff", "ssim_img", "ssim_seg", "mi",
            "corr", "mag", "neg_jac", "log_jac_std")
 
 
-def evaluate(eval_step, loader, length: int, batch_size: int,
-             max_samples: int = 0):
+def _jet_panel(flow):
+    """``flow_mag``'s JET panel of flow [1, H, W, 2], or None without
+    OpenCV."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return None
+    return flow_mag(flow)[1]
+
+
+def evaluate(eval_step, loader, writer: MetricWriter, length: int,
+             batch_size: int, max_samples: int = 0):
     meters = {k: AverageMeter() for k in METRICS}
     loss_meters = {k: AverageMeter() for k in
                    ("loss", "photo_loss", "corr_loss", "smooth_loss")}
@@ -55,7 +70,7 @@ def evaluate(eval_step, loader, length: int, batch_size: int,
     for i, batch in enumerate(loader):
         imgs, segs = batch["image_c"], batch.get("seg_c")
         outputs, metrics = eval_step(imgs, segs)
-        flows, warped_imgs, warped_segs, _ = outputs
+        flows, warped_imgs, warped_segs, warped_grid = outputs
         for k, m in loss_meters.items():
             m.update(float(metrics[k]))  # waits for the step
         timer.update(time.time() - tic)
@@ -63,6 +78,7 @@ def evaluate(eval_step, loader, length: int, batch_size: int,
 
         imgs_np = imgs.float().cpu().numpy()
         fixed = imgs_np[..., 0:1]
+        moving = imgs_np[..., 1:2]
         warped = warped_imgs[0].float().cpu().numpy()
         segs_np = None if segs is None else segs.cpu().numpy()
         wsegs = None if warped_segs is None else warped_segs.cpu().numpy()
@@ -89,6 +105,18 @@ def evaluate(eval_step, loader, length: int, batch_size: int,
             meters["log_jac_std"].update(log_jacobian_std(flow0[j]))
 
         step = i + 1
+        writer.add_images("fixed_img", fixed, step)
+        writer.add_images("moving_img", moving, step)
+        writer.add_images("warped_img", np.clip(warped, 0, 1), step)
+        writer.add_images("warped_grid",
+                          np.clip(warped_grid.float().cpu().numpy(), 0, 1), step)
+        jet = _jet_panel(flow0[:1])
+        if jet is not None:
+            writer.add_images("flow_mag", jet, step, dataformats="NCHW")
+        for k, m in meters.items():
+            if m.count:
+                writer.add_scalar(f"{k}_avg", m.avg, step)
+                writer.add_scalar(f"{k}_single", m.data[-1], step)
         if i % PRINT_INTERVAL == 0:
             print(
                 f"[EVAL batch {step:03d}/{length // batch_size:03d}] "
@@ -165,9 +193,14 @@ def main(argv=None, device=None):
         loss_kwargs=default_loss_kwargs(args.model),
         compute_dtype=torch.bfloat16 if args.precision == "bf16" else None,
     )
+    writer = MetricWriter(args.logdir, flush_secs=30)
     print("=================\n EVAL start\n=================", flush=True)
-    return evaluate(eval_step, iter(loader), length, args.batch_size,
-                    args.max_samples)
+    results = evaluate(eval_step, iter(loader), writer, length, args.batch_size,
+                       args.max_samples)
+    for tag in ("loss", "photo_loss", "corr_loss", "smooth_loss"):
+        writer.add_scalars(tag, {"eval": results[tag]}, 1)
+    writer.close()
+    return results
 
 
 if __name__ == "__main__":

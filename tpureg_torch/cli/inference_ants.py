@@ -9,12 +9,13 @@ the SVF registration of ``classical/syn.py`` (masked by ``fixed > 0``,
 ``SyNOnly`` call), warps the moving segmentation by the nearest sample and
 computes the same eight metrics: Dice, MSE, PSNR, modified Hausdorff, SSIM
 of the image and the segmentation, MI and Pearson correlation. It prints
-tpureg's per-batch line and ``CLASSICAL summary`` and returns the averages.
-Runs on the card unless ``device="cpu"`` is passed.
+tpureg's per-batch line and ``CLASSICAL summary`` and returns the averages;
+under ``--logdir`` each batch writes every metric's running average and
+latest value as the TensorBoard scalars ``<metric>_avg`` and
+``<metric>_single``. Runs on the card unless ``device="cpu"`` is passed.
 
 ``--backend`` takes ``auto`` and ``torch`` (the same thing): ANTs is not
-part of the port. Not yet ported: the TensorBoard scalars; ``--logdir`` is
-accepted for flag compatibility and nothing is written there yet.
+part of the port.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..classical import apply_flow, register_syn
 from ..data import eval_random_dataset, real_pairs_dataset
 from ..metrics import CORR, MI, MSE, PSNR, dice_average, dist_hausdorff, ssim
 from ..utils import AverageMeter, resolve_device
+from ..utils.tb import MetricWriter
 
 PRINT_INTERVAL = 2
 
@@ -87,6 +89,7 @@ def main(argv=None, device=None):
             "no image/seg pairs found (checked "
             f"{args.fiximg_dir if args.mode == 'real' else args.img_dir!r})")
 
+    writer = MetricWriter(args.logdir, flush_secs=30)
     meters = {k: AverageMeter() for k in METRICS}
     timer = AverageMeter()
     tic = time.time()
@@ -112,6 +115,9 @@ def main(argv=None, device=None):
         timer.update(time.time() - tic)
         tic = time.time()
         step = i + 1
+        for k, m in meters.items():
+            writer.add_scalar(f"{k}_avg", m.avg, step)
+            writer.add_scalar(f"{k}_single", m.data[-1], step)
         if i % PRINT_INTERVAL == 0:
             print(
                 f"[CLASSICAL {step:03d}/{length:03d}] time {timer.val:.2f}s "
@@ -126,6 +132,7 @@ def main(argv=None, device=None):
     for k, m in meters.items():
         if m.count:
             print(f"  {k:12s}: {m.avg:.5f}")
+    writer.close()
     return {k: m.avg for k, m in meters.items() if m.count}
 
 

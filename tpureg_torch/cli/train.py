@@ -4,15 +4,19 @@ train.py:107-120), run as ``python -m tpureg_torch.cli.train``.
 Per epoch: the TRAIN pass (loss meters printed every PRINT_INTERVAL batches,
 train.py:75-84), the training-state checkpoint (train.py:183-188), the VAL
 pass with a best-weight save on improvement (train.py:191-201) and the TEST
-pass. ``--cp`` resumes from the training-state checkpoint and skips the
-finished epochs; ``--synthetic N`` trains on N random batches an epoch
-instead of OASIS. On OASIS the elastic synthesis runs inside the train step
-(``make_train_step(synth=...)``). Runs on the card unless ``device="cpu"``
-is passed.
+pass, then the TensorBoard scalars under ``--logdir``: ``lr`` and, for
+each loss term, its train, val and test averages as one group
+(train.py:209-212). ``--cp`` resumes from the training-state checkpoint and
+skips the finished epochs; ``--pretrained PATH`` then imports a torch
+checkpoint in the reference's key names into the predictor (strict=False;
+``--surgery rgb|rgb_pair`` collapses the RGB input of the stem
+convolutions, the keys ending in ``conv1.0.weight`` or ``conv1a.0.weight``)
+and prints what it loaded. ``--synthetic N`` trains on N random batches an
+epoch instead of OASIS. On OASIS the elastic synthesis runs inside the
+train step (``make_train_step(synth=...)``). Runs on the card unless
+``device="cpu"`` is passed.
 
-Not ported: ``--pretrained``/``--surgery`` (torch checkpoint import),
-``--fsdp`` (sharded training) and the TensorBoard scalars; ``--logdir`` is
-accepted and nothing is written there yet.
+Not ported: ``--fsdp`` (sharded training).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..train import (
     step_decay_schedule,
 )
 from ..utils import AverageMeter, derive_seed, resolve_device, seed_everything
+from ..utils.tb import MetricWriter
 
 PRINT_INTERVAL = 2
 TERMS = ("loss", "photo_loss", "corr_loss", "smooth_loss")
@@ -141,6 +146,10 @@ def build_argparser():
                    help="train on N random batches/epoch instead of OASIS")
     p.add_argument("--image_size", default=256, type=int)
     p.add_argument("--shuffle", action="store_true")
+    p.add_argument("--pretrained", default=None,
+                   help="torch checkpoint to import (strict=False)")
+    p.add_argument("--surgery", default=None, choices=(None, "rgb", "rgb_pair"),
+                   help="input-channel surgery applied to the stem conv")
     p.add_argument("--workdir", default=".")
     p.add_argument("--logdir", default="./log")
     p.add_argument("--seed", default=6, type=int)
@@ -182,6 +191,20 @@ def main(argv=None, device=None):
             print("----------loading checkpoint state----------", flush=True)
             state, starting_epoch, best_loss = restored
 
+    if args.pretrained:
+        from ..compat import import_torch_state_dict, load_torch_checkpoint
+
+        sd = load_torch_checkpoint(args.pretrained)
+        # stem conv of each package: conv1.0 / conv1a.0 (+ cascade prefix)
+        surgery = ({k: args.surgery for k in sd
+                    if k.endswith(("conv1.0.weight", "conv1a.0.weight"))}
+                   if args.surgery else {})
+        report = import_torch_state_dict(sd, model, surgery=surgery,
+                                         prefix="predictor.")
+        print(f"imported {len(report['loaded'])} tensors "
+              f"({len(report['missing'])} unmatched, "
+              f"{len(report['shape_mismatch'])} shape-mismatched)", flush=True)
+
     compute_dtype = torch.bfloat16 if args.precision == "bf16" else None
     loss_kwargs = default_loss_kwargs(args.model)
     train_step = make_train_step(state, loss_kwargs=loss_kwargs,
@@ -220,12 +243,15 @@ def main(argv=None, device=None):
                       if fused_synth else iter(train_ds))
         return train_iter, iter(val_ds), iter(test_ds), train_len
 
+    writer = MetricWriter(args.logdir, flush_secs=30)
     for e in range(starting_epoch, args.epochs):
         print(f"=================\n EPOCH {e + 1}/{args.epochs}\n"
               f"=================", flush=True)
         train_loader, val_loader, test_loader, train_len = make_loaders(e)
-        run_epoch(train_step, train_loader, "TRAIN",
-                  train_len // args.batch_size)
+        # the rate scheduled at the current step, not the initial one
+        writer.add_scalar("lr", state.lr(), e + 1)
+        train_m = run_epoch(train_step, train_loader, "TRAIN",
+                            train_len // args.batch_size)
         save_training_state(args.workdir, predictor_name, state, e, best_loss)
 
         val_m = run_epoch(eval_step, val_loader, "VAL", train=False)
@@ -236,7 +262,11 @@ def main(argv=None, device=None):
                 args.workdir, predictor_name, model,
                 {f"{k}_val": v for k, v in val_m.items() if k != "_n"})
 
-        run_epoch(eval_step, test_loader, "TEST", train=False)
+        test_m = run_epoch(eval_step, test_loader, "TEST", train=False)
+        for tag in TERMS:
+            writer.add_scalars(tag, {"train": train_m[tag], "val": val_m[tag],
+                                     "test": test_m[tag]}, e + 1)
+    writer.close()
     print("---------Train complete---------", flush=True)
     return state
 

@@ -7,13 +7,15 @@ whole-volume pairs from ``volume_dataset`` (each moving volume a random rigid
 transform of its fixed one, synthesised on the device); ``--stage deform``
 trains ``VoxelMorph3D`` with ``DEFloss3D``. ``--synthetic N`` trains on N
 batches of U(0, 1) volumes an epoch instead. One line of average metrics is
-printed per epoch, as tpureg prints it. Adam takes optax's default eps,
-1e-8. Runs on the card unless ``device="cpu"`` is passed.
+printed per epoch, as tpureg prints it, and each average is written under
+``--logdir`` as the TensorBoard scalar ``affine_<metric>`` or
+``deform_<metric>``. Adam takes optax's default eps, 1e-8. Runs on the card
+unless ``device="cpu"`` is passed.
 
 The volumes are resized to ``--volume_size`` on real data too (tpureg's
 dataset always takes the default 176,256,256). Not ported:
 ``--spatial_shards > 1`` (spatial sharding over several cards, ROADMAP.md
-item 9) raises, and no TensorBoard files are written to ``--logdir``.
+item A.7) raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..train import (
     make_deform3d_train_step,
 )
 from ..utils import AverageMeter, derive_seed, resolve_device, seed_everything
+from ..utils.tb import MetricWriter
 
 
 def synthetic_volumes(seed: int, n_batches: int, batch_size: int, size, device):
@@ -78,6 +81,7 @@ def main(argv=None, device=None):
     else:
         train_step = make_affine_train_step(state)
         meter_keys = ("loss", "photo_loss", "corr_loss")
+    writer = MetricWriter(args.logdir, flush_secs=30)
     meters = {k: AverageMeter() for k in meter_keys}
 
     for e in range(args.epochs):
@@ -98,6 +102,9 @@ def main(argv=None, device=None):
         print(f"[{tag} epoch {e + 1}/{args.epochs}] loss {meters['loss'].avg:.4f} "
               f"photo {meters['photo_loss'].avg:.4f} "
               f"corr {meters['corr_loss'].avg:.4f}", flush=True)
+        for k, m in meters.items():
+            writer.add_scalar(f"{tag.lower()}_{k}", m.avg, e + 1)
+    writer.close()
     return state
 
 

@@ -4,6 +4,14 @@ from .from_jax import (
     state_dict_from_jax_3d,
     state_dict_from_jax_raft,
 )
+from .torch_import import (
+    collapse_rgb_input,
+    collapse_rgb_pair_input,
+    import_torch_state_dict,
+    load_torch_checkpoint,
+)
 
-__all__ = ["load_adam_state_from_jax", "state_dict_from_jax",
+__all__ = ["collapse_rgb_input", "collapse_rgb_pair_input",
+           "import_torch_state_dict", "load_adam_state_from_jax",
+           "load_torch_checkpoint", "state_dict_from_jax",
            "state_dict_from_jax_3d", "state_dict_from_jax_raft"]

@@ -140,7 +140,8 @@ def corr_pyramid(f1, f2, levels: int = 4):
     b, c, h, w = f1.shape
     corr = torch.bmm(f1.reshape(b, c, h * w).transpose(1, 2), f2.reshape(b, c, h * w))
     scale = float(torch.tensor(float(c), dtype=torch.float32).sqrt())
-    corr = corr.to(torch.promote_types(corr.dtype, torch.float32)).div_(scale)
+    # out of place: ``remat="dots"`` keeps the product for the backward
+    corr = corr.to(torch.promote_types(corr.dtype, torch.float32)) / scale
     corr = corr.reshape(b * h * w, 1, h, w)
     pyramid = [corr]
     for _ in range(levels - 1):

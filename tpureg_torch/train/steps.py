@@ -16,6 +16,18 @@ decimal digits.
 Each call sets the model's mode: the train step puts it in train mode
 (batch statistics, running-stat updates), the eval step in eval mode.
 
+``make_train_step(remat=...)`` recomputes the head's forward inside the
+backward (``torch.utils.checkpoint``, non-reentrant), tpureg's
+``jax.checkpoint`` over ``apply_fn``: ``"full"`` keeps nothing of the
+forward, ``"dots"`` keeps the outputs of the convolutions and matrix
+products (tpureg's ``checkpoint_dots``) and recomputes the rest. The casts
+of the bf16 step stay outside the recomputed region. The hand-written
+kernels are ``ctypes`` calls, which no dispatch mode sees, so they always
+run again: K1 and K3 launch once more in the backward for each launch in
+the forward, since the last tensor the forward saves is the grid warp's.
+BatchNorm's recomputed forward would update its running statistics a
+second time; the step puts back the statistics of the first forward.
+
 ``make_flow_supervised_step`` is the synthetic-flow pretraining step
 (tpureg steps.py:214-343): mean endpoint error of every flow the head
 returns against ``stn_inverse_target`` of the displacement that synthesised
@@ -29,11 +41,17 @@ TF32 off, one Adam update each.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..losses import Affloss, DEFloss3D, OFEloss
 from ..ops.warp import base_grid
@@ -93,17 +111,48 @@ def _nchw(t):
     return None if t is None else t.permute(0, 3, 1, 2)
 
 
-def _forward(model, imgs, segs, compute_dtype):
+# the products whose outputs ``remat="dots"`` keeps: jax's checkpoint_dots
+# saves dot_general and convolution outputs
+_DOTS = frozenset((torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.addmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXTS = {
+    "full": {},
+    "dots": {"context_fn": partial(create_selective_checkpoint_contexts,
+                                   _dots_policy)},
+}
+
+
+def _forward(model, imgs, segs, compute_dtype, remat=None):
     """The head on channels-last ``imgs``/``segs`` with the current weights,
-    cast to ``compute_dtype`` when it is given; channels-last outputs."""
+    cast to ``compute_dtype`` when it is given; channels-last outputs. Under
+    ``remat`` the head's forward (not the casts) is checkpointed."""
     if compute_dtype is None:
-        return model(imgs, segs)
-    return torch.func.functional_call(
-        model, cast_params(model, compute_dtype), (imgs.to(compute_dtype), segs))
+        apply = lambda x: model(x, segs)
+    else:
+        params = cast_params(model, compute_dtype)
+        imgs = imgs.to(compute_dtype)
+        apply = lambda x: torch.func.functional_call(model, params, (x, segs))
+    if remat is None:
+        return apply(imgs)
+    return checkpoint(apply, imgs, use_reentrant=False, **_REMAT_CONTEXTS[remat])
 
 
-def _loss_terms(model, imgs, segs, loss_kwargs, compute_dtype):
-    outputs = _forward(model, imgs, segs, compute_dtype)
+def _batchnorm_stats(model):
+    """Clones of every BatchNorm buffer (running statistics and count)."""
+    return [(b, b.clone()) for m in model.modules()
+            if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for b in m.buffers()]
+
+
+def _loss_terms(model, imgs, segs, loss_kwargs, compute_dtype, remat=None):
+    outputs = _forward(model, imgs, segs, compute_dtype, remat)
     flows, warped = outputs[0], outputs[1]
     p, c, s, total = loss_from_outputs(
         (tuple(_nchw(f) for f in flows), tuple(_nchw(w) for w in warped)),
@@ -138,7 +187,8 @@ def make_eval_step(model, loss_kwargs: Optional[dict] = None,
 
 def make_train_step(state, loss_kwargs: Optional[dict] = None,
                     compute_dtype: Optional[torch.dtype] = None,
-                    accum_steps: int = 1, synth: Optional[Callable] = None):
+                    remat: Optional[str] = None, accum_steps: int = 1,
+                    synth: Optional[Callable] = None):
     """``train_step(imgs) -> metrics`` for a ``TrainState``
     (``train/state.py``): forward in train mode, multi-scale loss, gradients,
     one Adam update of the state's optimizer at the scheduled learning rate.
@@ -154,9 +204,12 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
     ``synth``: when given, the step's argument is a spec tuple (e.g.
     ``SliceDataset.batch_specs()``'s) and ``imgs = synth(*spec)``.
 
-    (tpureg's ``remat`` is not ported; see ROADMAP.md.)
+    ``remat``: ``None``, ``"full"`` or ``"dots"`` (the module docstring);
+    the metrics, the update and the running statistics are the base step's.
     """
     loss_kwargs = loss_kwargs or {}
+    if remat not in (None, "full", "dots"):
+        raise ValueError(f"remat must be None|'full'|'dots', got {remat!r}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if compute_dtype is None:
@@ -175,11 +228,14 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
         for mb in imgs.reshape(accum_steps, b // accum_steps, *imgs.shape[1:]):
             with torch.enable_grad():
                 _, metrics = _loss_terms(model, mb, None, loss_kwargs,
-                                         compute_dtype)
+                                         compute_dtype, remat)
+                stats = _batchnorm_stats(model) if remat else ()
                 # a parameter the forward never reads (PWC's deconv0) gets
                 # a zero gradient, as tpureg's does
                 g = torch.autograd.grad(metrics["loss"], params,
                                         materialize_grads=True)
+            for buf, first in stats:  # undo the recomputed forward's update
+                buf.copy_(first)
             terms = torch.stack([metrics[k].detach() for k in _TERMS])
             if grads is None:
                 grads, sums = list(g), terms
