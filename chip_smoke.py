@@ -124,6 +124,20 @@
    which equals the numpy path on every volume; the TensorBoard writer's
    one warning where no backend imports; ``profiling.trace`` around one
    FlowNet2 eval step, whose trace names K1's and K3's kernels;
+8l. the serving export (ROADMAP A.8): FlowNetS (tpureg's export default)
+   and FlowNet2 at 256², batch 8, fp32 with TF32 off, with and without
+   segmentations, exported with ``export_registration`` (the kernels are
+   the ops ``tpureg::*``, nodes of the graph), saved, loaded back and
+   called: each artifact call launches exactly the live eval head's
+   kernels; with cuDNN's deterministic algorithms (its default transposed
+   convolutions add with atomics) its flows are within 1e-5 of their scale
+   of the live head's, its warped images and grid within what that moves
+   a sample (``compare_outputs``) and its warped segmentation equal; the
+   same files loaded on the CPU (``move_to_device_pass``) against the
+   CPU's plain path by phase 8e's registration rule (flows within 0.1 px
+   anywhere and 2e-3 px on average); ``python -m tpureg_torch.cli.export
+   ... --check`` on the card; the artifact call and the live head timed
+   (median of 10 after 2);
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 (d/dgrid) and K5 (d/dinput),
@@ -143,6 +157,9 @@
    its feature warp, fp32 and bf16),
    the eval and train steps of FlowNet2, pwc-reg, raft-reg and FlowNetS at batch 8 and the 3-D
    train steps at batch 2, whole 2-D and 3-D registrations, peak memory;
+   the train steps of FlowNet2 (fp32, bf16) and pwc-reg (fp32) beside
+   their medians when the kernels were ctypes calls (commit bf75122), the
+   steps' cost of calling the kernels as ops;
 10. a torch.profiler breakdown of one eval, one train and one step of each
     3-D stage, of pwc-reg's, raft-reg's and FlowNetS's eval and train steps, and of one
     2-D and one 3-D registration, by kernel group, with the device's idle
@@ -212,6 +229,8 @@ from tpureg_torch.ops.warp import (
     warp2d,
 )
 from tpureg_torch.reg import OpticalFlowReg
+from tpureg_torch.serving import (compare_outputs, deterministic_cudnn, export_registration,
+                                  load_artifact, save_artifact)
 from tpureg_torch.train import (
     best_weight_path,
     create_train_state,
@@ -2314,6 +2333,129 @@ def trace_path(eval_step, imgs, segs):
     require(all(named.values()), "the trace does not name K1's and K3's kernels")
 
 
+# launches of the eval head without segmentations: one K3 fewer
+FLOWNETS_EXPORT_LAUNCHES = {True: FLOWNETS_EVAL_LAUNCHES, False: launches_of(warp2d=3)}
+FLOWNET2_EXPORT_LAUNCHES = {True: EVAL_LAUNCHES,
+                            False: launches_of(correlation=1, warp2d=6)}
+
+
+def leaves(outputs):
+    return [t for t in torch.utils._pytree.tree_leaves(outputs) if t is not None]
+
+
+def hold_artifact(label, got, want):
+    """``compare_outputs``' rule (tpureg_torch/serving/export.py): flows
+    within 1e-5 of their scale, warped images and grid within what the
+    flows' difference moves a sample, warped segmentations equal."""
+    try:
+        return compare_outputs(got, want)
+    except AssertionError as e:
+        raise RuntimeError(f"{label}: the artifact and the live head disagree: {e}")
+
+
+def export_path(flownet2):
+    phase("8l. the serving export: FlowNetS and FlowNet2 at 256², batch 8, fp32, "
+          "with and without segs; card and CPU; the export CLI")
+    set_fp32_numerics()
+    heads = {"flownets": (OpticalFlowReg("flownets", generator=torch.Generator()
+                                         .manual_seed(60)).to(DEV),
+                          FLOWNETS_EXPORT_LAUNCHES),
+             "flownet2": (flownet2, FLOWNET2_EXPORT_LAUNCHES)}
+    imgs, segs = phantom_batch(BATCH, SIZE, seed=61)
+    imgs, segs = imgs.to(DEV), segs.to(DEV)
+    tmp = tempfile.TemporaryDirectory()
+    for name, (head, gates) in heads.items():
+        head.eval()
+        for with_segs in (True, False):
+            label = f"{name} {'with' if with_segs else 'without'} segs"
+            inputs = (imgs, segs) if with_segs else (imgs,)
+            t0 = time.perf_counter()
+            exported = export_registration(head, BATCH, SIZE, with_segs=with_segs)
+            t_export = time.perf_counter() - t0
+            ops = [str(n.target) for n in exported.graph.nodes
+                   if n.op == "call_function" and str(n.target).startswith("tpureg.")]
+            path = os.path.join(tmp.name, f"{name}_{int(with_segs)}.pt2")
+            t0 = time.perf_counter()
+            save_artifact(path, exported)
+            served = load_artifact(path, DEV)
+            t_io = time.perf_counter() - t0
+            with torch.no_grad():
+                # cuDNN's default algorithms: two live calls, the artifact
+                first, again, default = (head(*inputs), head(*inputs),
+                                         served(*inputs))
+                repeat = max(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(leaves(again), leaves(first)))
+                off = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(leaves(default), leaves(first)))
+                with deterministic_cudnn():
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    live = head(*inputs)
+                    torch.cuda.synchronize()
+                    live_launches = counts()
+                    reset_counts()
+                    got = served(*inputs)
+                    torch.cuda.synchronize()
+                    art_launches = counts()
+            print(f"  {label}: exported in {t_export:.1f} s, {len(ops)} op nodes "
+                  f"({', '.join(sorted(set(ops)))}); {os.path.getsize(path) / 1e6:.1f} "
+                  f"MB, saved and loaded in {t_io:.1f} s; launches live "
+                  f"{live_launches}, artifact {art_launches}")
+            require(live_launches == gates[with_segs],
+                    f"{label}: the live head should launch {gates[with_segs]}")
+            require(art_launches == live_launches,
+                    f"{label}: the artifact should launch the live head's kernels")
+            require(len(ops) == sum(gates[with_segs][k] for k in ("correlation", "warp2d")),
+                    f"{label}: every kernel of the forward should be a graph node")
+            diffs = hold_artifact(label, got, live)
+            print(f"    artifact vs live head on the card, cuDNN deterministic: "
+                  f"flows {diffs['flows']}, warped images {diffs['warped']}, grid "
+                  f"{diffs['grid']:.3g}, segmentations equal; with cuDNN's default "
+                  f"algorithms two live calls differ by up to {repeat:.3g}, the "
+                  f"artifact from the live head by {off:.3g}")
+            if not with_segs:
+                continue
+            with torch.no_grad():  # "loss": a view of one flow value
+                live_ms = step_times(f"{label}: live eval head",
+                                     lambda: {"loss": head(*inputs)[0][0][0, 0, 0, 0]})
+                art_ms = step_times(f"{label}: artifact",
+                                    lambda: {"loss": served(*inputs)[0][0][0, 0, 0, 0]})
+            print(f"    artifact / live head: {art_ms / live_ms:.3f}")
+            cpu_served = load_artifact(path, "cpu")
+            cpu_head = copy.deepcopy(head).cpu()
+            cpu_in = tuple(t.cpu() for t in inputs)
+            with torch.no_grad():
+                cflow = cpu_head(*cpu_in)[0][0]
+                aflow = cpu_served(*cpu_in)[0][0]
+            dflow = (aflow - cflow).abs()
+            dcard = (aflow - got[0][0].cpu()).abs()
+            print(f"    the file on the CPU vs the CPU's plain path: |Δflow| max "
+                  f"{float(dflow.max()):.3g} px, mean {float(dflow.mean()):.3g} "
+                  f"(tolerances 0.1 and 2e-3 px); vs the card: max "
+                  f"{float(dcard.max()):.3g}, mean {float(dcard.mean()):.3g} px")
+            require(float(dflow.max()) <= 0.1 and float(dflow.mean()) <= 2e-3,
+                    f"{label}: the artifact on the CPU and the CPU's plain path disagree")
+            del cpu_served, cpu_head
+    out = os.path.join(tmp.name, "cli.pt2")
+    res = subprocess.run(
+        [sys.executable, "-m", "tpureg_torch.cli.export", "--model", "flownets",
+         "--random_weights", "--check", "--with_segs", "--batch_size", str(BATCH),
+         "--image_size", str(SIZE), "--out", out, "--platforms", "cuda", "cpu"],
+        capture_output=True, text=True, timeout=600)
+    print("  export CLI: " + "\n  export CLI: ".join(res.stdout.strip().splitlines()))
+    require(res.returncode == 0 and "artifact check OK" in res.stdout,
+            f"the export CLI's --check failed: {res.stderr[-2000:]}")
+    tmp.cleanup()
+
+
+def step_medians_beside_ctypes():
+    print("\n  train steps beside commit bf75122's (kernels called through "
+          "torch.library ops now, ctypes inside autograd.Functions then):")
+    for label, then in CTYPES_TRAIN_MS.items():
+        now = STEP_MEDIANS[label]
+        print(f"    {label}: {now:.3f} ms, then {then:.3f} ms ({now / then - 1:+.1%})")
+
+
 def kernel_row(name, source, replaces, counter, path, err, ms, plain, work,
                dtype, library):
     """One entry of the kernel table; ``launches`` is filled in from the
@@ -2333,6 +2475,15 @@ def print_rows(rows):
               f"({row['bound_by']})  library {lib}")
 
 
+# step_times' medians by label, and the train steps' at commit bf75122
+# (NVIDIA H100 80GB HBM3, 700.00 W), when the kernels were ctypes calls
+# inside autograd.Functions rather than torch.library ops
+STEP_MEDIANS = {}
+CTYPES_TRAIN_MS = {f"train step fp32, batch {BATCH} at 256²": 120.481,
+                 f"train step bf16, batch {BATCH} at 256²": 111.754,
+                 f"pwc-reg train step fp32, batch {BATCH} at 256²": 65.470}
+
+
 def step_times(label, call, reps=10, warmup=2, per=BATCH, unit="pair"):
     """Median host time of ``call`` (which returns its metrics) to a
     synchronised card, after ``warmup`` calls; ``per`` items a step."""
@@ -2346,6 +2497,7 @@ def step_times(label, call, reps=10, warmup=2, per=BATCH, unit="pair"):
         if i >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
+    STEP_MEDIANS[label] = med
     print(f"  {label}: median {med:.3f} ms ({med / per:.3f} ms per {unit}; min "
           f"{min(times):.3f}, max {max(times):.3f}, {reps} steps after {warmup})")
     torch.cuda.synchronize()
@@ -3327,6 +3479,8 @@ def main():
     pairs.cleanup()
     train_vols.cleanup()
     mark("A.6: remat, --pretrained, the native decoder, TensorBoard, trace")
+    export_path(model)
+    mark("A.8: the serving export")
     vol_steps = {"affine": affine_step, "deform": deform_step}
     kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                       vol_steps, vols, vflow, velocity)
@@ -3365,6 +3519,7 @@ def main():
     step_times("register_syn3d at 176 x 256 x 256, (30, 20, 10)",
                lambda: {"loss": syn3d_calls["register_syn3d"](*syn3d_args)[1].sum()},
                reps=3, warmup=1, per=1)
+    step_medians_beside_ctypes()
     mark("timings")
     phase("10. where the steps' time goes (torch.profiler, one step each)")
     breakdown("eval step", eval_steps, (imgs, segs))

@@ -36,7 +36,8 @@ from tpureg_torch.ops import (
 from tpureg_torch.classical import exp_velocity3d
 from tpureg_torch.classical.syn import _compose
 from tpureg_torch.ops import warp as warp_ops
-from tpureg_torch.ops.warp import _Sample3dKernel, warp2d
+from tpureg_torch.ops.library import OPS
+from tpureg_torch.ops.warp import warp2d
 
 pytestmark = pytest.mark.gpu
 
@@ -623,7 +624,7 @@ def test_warp_node_saves_no_per_channel_tensor(dev, need_img):
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        out = warp_ops._Sample2dKernel.apply(img, px, py)
+        out = torch.ops.tpureg.sample2d(img, px, py)
     # two fp32 bases [B, C, P] beside the positions would exceed this bound
     assert 0 < sum(saved) <= img.numel() * img.element_size() + 2 * px.numel() * 4
     out.sum().backward()
@@ -785,7 +786,7 @@ def test_warp3d_deform_integration_launches(dev):
 
 
 def test_warp3d_kernel_gradients_against_fp64_differences(dev):
-    """gradcheck's test of _Sample3dKernel: its analytic gradients (fp32
+    """gradcheck's test of the op tpureg::sample3d: its analytic gradients (fp32
     kernels on the card) against central differences of the plain version
     in fp64, at positions at least 0.05 from a voxel plane (the trilinear
     sample is smooth between them)."""
@@ -801,7 +802,7 @@ def test_warp3d_kernel_gradients_against_fp64_differences(dev):
         return (sample3d_gather(v, x, y, z) * weights).sum()
 
     args = [vol.float().requires_grad_()] + [p.float().requires_grad_() for p in pos]
-    (_Sample3dKernel.apply(*args) * weights.float()).sum().backward()
+    (torch.ops.tpureg.sample3d(*args) * weights.float()).sum().backward()
     eps = 1e-6
     inputs = [vol] + pos
     for i, (x, a) in enumerate(zip(inputs, args)):
@@ -819,3 +820,60 @@ def test_warp3d_kernel_gradients_against_fp64_differences(dev):
     assert torch.autograd.gradcheck(
         lambda v, x, y, z: sample3d_gather(v, x, y, z),
         [vol.requires_grad_()] + [p.requires_grad_() for p in pos])
+
+
+# ---------------------------------------------------------------------------
+# each kernel through its op (tpureg_torch/ops/library.py)
+
+def _op_cases(dev, dtype):
+    """Each op's operands at a shape of the main path: FlowNetC's correlation
+    at 64², the stn warp of a 256² batch, PWC's level-3 feature warp, the
+    deform step's 3-D warp at 16 x 64 x 64."""
+    g = torch.Generator(device=dev).manual_seed(40)
+    f1, f2 = (torch.randn((2, 256, 16, 16), device=dev, generator=g).to(dtype)
+              for _ in range(2))
+    kk = 21 * 21
+    dcor = torch.randn((2, kk, 16, 16), device=dev, generator=g).to(dtype)
+    px, py = _positions(dev, 8, 64, 64, scale=3.0, seed=41)
+    img = torch.rand((8, 32, 64, 64), device=dev, generator=g).to(dtype)
+    g2 = torch.randn((8, 32, px.shape[1]), device=dev, generator=g)
+    vol = torch.rand((1, 3, 16, 64, 64), device=dev, generator=g).to(dtype)
+    p3 = _positions3d(dev, 1, 16, 64, 64, 2.0, 42)
+    g3 = torch.randn((1, 3, p3[0].shape[1]), device=dev, generator=g)
+    return {
+        "correlation": (f1, f2, 20, 2),
+        "correlation_bwd": (f1, f2, dcor, 20, 2),
+        "sample2d": (img, px, py),
+        "sample2d_dpos": (g2, img, px, py),
+        "sample2d_dimg": (g2, px, py, list(img.shape), dtype),
+        "sample3d": (vol, *p3),
+        "sample3d_dpos": (g3, vol, *p3),
+        "sample3d_dvol": (g3, *p3, list(vol.shape), dtype),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,kernel", [(n, k) for n, k, _ in OPS])
+def test_op_equals_its_launch_function(dev, name, kernel, dtype):
+    """The op launches its kernel once, through its launch function, and
+    gives that function's result bit for bit; K5 and K6c, whose atomics
+    add in an order that changes from run to run, within their tolerance
+    against the plain version (fp32 1e-5; bf16 one step)."""
+    launch = dict((n, f) for n, _, f in OPS)[name]
+    args = _op_cases(dev, dtype)[name]
+    want = launch(*args)
+    before = launch.launches
+    got = getattr(torch.ops.tpureg, name)(*args)
+    torch.cuda.synchronize()
+    assert launch.launches == before + 1
+    got, want = ((got,), (want,)) if isinstance(got, torch.Tensor) else (got, want)
+    assert len(got) == len(want)
+    for a, b_ in zip(got, want):
+        assert a.dtype == b_.dtype and a.shape == b_.shape
+        if kernel in ("K5", "K6c"):
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, b_, atol=1e-5, rtol=1e-5)
+            else:
+                _bf16_close(a, b_, atol=1e-5)
+        else:
+            assert torch.equal(a, b_), kernel

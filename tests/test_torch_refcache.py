@@ -13,14 +13,21 @@ more as an ``.npy`` file of its own, which every worker maps copy-on-write
 worker, and a caller's writes stay its own); JAX arrays are stored as
 numpy arrays.
 
-The cache holds gigabytes (FlowNet2's four snapshots and two Adam states:
-5.2 GB). Each worker that uses it is registered; the last to finish its
-session deletes the entries, and a cache that an earlier session left (a
-run cut short) is deleted when this session stores its first entry.
+The cache holds gigabytes (FlowNet2's initialisation, three snapshots and
+two Adam states: 5.2 GB). Each worker that uses it is registered; the last
+to finish its session deletes the entries. When this session stores its
+first entry, the directories of the earlier sessions that have finished
+are deleted whole (pytest keeps the last three, and tpureg's CLI tests
+leave 3.8 GB in each): a session whose own files and cache peak at about
+12 GB ran out of disk behind two of them (``Not enough free space to
+write`` while storing FlowNet2's entry; every test of the module failed in
+setup). A session that is still running (pytest's ``.lock`` in its
+directory) is left alone.
 """
 
 import os
 import pickle
+import re
 import shutil
 import time
 import uuid
@@ -31,6 +38,7 @@ import pytest
 from filelock import FileLock
 
 _BIG = 1 << 16
+_SESSION_DIR = re.compile(r"pytest-\d+")
 
 
 def _cache_root(tmp_path_factory):
@@ -85,7 +93,7 @@ class _Cache:
         with FileLock(str(self.root / f"{name}.lock")):
             if not (folder / "done").exists():
                 if not any(self.root.glob("*/done")):
-                    _remove_older_sessions(self.root)
+                    _remove_finished_sessions(self.root)
                 shutil.rmtree(folder, ignore_errors=True)
                 folder.mkdir()
                 value = compute()
@@ -96,12 +104,19 @@ class _Cache:
                 return _Unpickler(f, folder).load()
 
 
-def _remove_older_sessions(root):
-    """Delete ``refcache/`` of earlier sessions beside this one (pytest's
-    ``pytest-current`` link to this session's directory left alone)."""
-    here = root.resolve()
-    for other in root.parent.parent.glob("*/refcache"):
-        if not other.parent.is_symlink() and other.resolve() != here:
+def _remove_finished_sessions(root):
+    """Delete the directories of earlier sessions beside this one's, pytest's
+    numbered ``pytest-<n>``, that have finished: pytest removes a session's
+    ``.lock`` when the session ends. This session's directory and pytest's
+    ``pytest-current`` link to it are left alone, and nothing is deleted
+    where the session's directory is not a numbered one (``--basetemp``)."""
+    here = root.parent
+    if not _SESSION_DIR.fullmatch(here.name):
+        return
+    for other in here.parent.iterdir():
+        if (_SESSION_DIR.fullmatch(other.name) and other.name != here.name
+                and not other.is_symlink() and other.is_dir()
+                and not (other / ".lock").exists()):
             shutil.rmtree(other, ignore_errors=True)
 
 
@@ -168,18 +183,55 @@ def test_a_failed_compute_leaves_no_entry(refcache):
 
 def test_the_last_user_deletes_the_entries(tmp_path):
     """Two users of one cache: the entries outlive the first and go with
-    the second; an earlier session's cache goes with the first entry."""
+    the second; an earlier session's directory, its cache and its other
+    files, goes with the first entry."""
     old = tmp_path / "pytest-1" / "refcache" / "entry"
     old.mkdir(parents=True)
+    (tmp_path / "pytest-1" / "popen-gw2" / "test_train_cli0").mkdir(parents=True)
     root = tmp_path / "pytest-2" / "refcache"
     root.mkdir(parents=True)
     (tmp_path / "pytest-current").symlink_to(root.parent)
     users = [_registered(root, w) for w in ("gw0", "gw1")]
     caches = [next(u) for u in users]
     assert caches[0]("entry", lambda: np.ones(_BIG)).sum() == _BIG
-    assert not old.parent.exists()
+    assert not (tmp_path / "pytest-1").exists()
+    assert (tmp_path / "pytest-current").resolve() == root.parent
     assert caches[1]("entry", lambda: None).sum() == _BIG
     for i, user in enumerate(users):
         with pytest.raises(StopIteration):
             next(user)
         assert (root / "entry" / "done").exists() == (i == 0)
+
+
+def test_a_running_session_keeps_its_directory(tmp_path):
+    """The first entry deletes finished sessions only: a directory holding
+    pytest's ``.lock`` belongs to a session still running, and keeps its
+    cache and its files."""
+    running = tmp_path / "pytest-3"
+    (running / "refcache" / "entry").mkdir(parents=True)
+    (running / ".lock").write_text("4242")
+    finished = tmp_path / "pytest-4" / "popen-gw0"
+    finished.mkdir(parents=True)
+    root = tmp_path / "pytest-5" / "refcache"
+    root.mkdir(parents=True)
+    user = _registered(root, "gw0")
+    cache = next(user)
+    assert cache("entry", lambda: 3) == 3
+    assert (running / "refcache" / "entry").is_dir()
+    assert not finished.parent.exists()
+    with pytest.raises(StopIteration):
+        next(user)
+
+
+def test_no_session_directory_is_deleted_under_basetemp(tmp_path):
+    """Under ``--basetemp`` the session's directory is not pytest's
+    numbered one: nothing beside it is deleted."""
+    beside = tmp_path / "pytest-7" / "popen-gw0"
+    beside.mkdir(parents=True)
+    root = tmp_path / "mine" / "refcache"
+    root.mkdir(parents=True)
+    user = _registered(root, "gw0")
+    assert next(user)("entry", lambda: 1) == 1
+    assert beside.is_dir()
+    with pytest.raises(StopIteration):
+        next(user)

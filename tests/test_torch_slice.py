@@ -223,6 +223,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 ROOT_SCRIPTS = ("chip_smoke.py", "ab_warp2d.py", "ab_warp2d_dpos.py", "ab_warp3d_dvol.py",
                 "ab_correlation.py", "torch_quality_real.py", "torch_quality3d.py",
                 "torch_quality_phantom.py")
+# the one exception: the converter of tpureg's checkpoints runs where JAX is
+# and imports tpureg (tests/test_torch_convert.py); nothing of the port and
+# no script above imports it
+JAX_SIDE_SCRIPTS = ("convert_checkpoint.py",)
 
 
 def _port_sources():
@@ -269,3 +273,13 @@ def test_port_source_has_no_jax_import(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax", "orbax",
                                "tpureg"), f"{path}: imports {name}"
+
+
+def test_every_root_script_of_the_port_is_named():
+    """A root script that uses the port is a card-side script (no JAX) or
+    the converter, and no card-side script names the converter."""
+    uses_port = sorted(p.name for p in ROOT.glob("*.py")
+                       if "tpureg_torch" in p.read_text())
+    assert uses_port == sorted(ROOT_SCRIPTS + JAX_SIDE_SCRIPTS)
+    for path in _port_sources():
+        assert "convert_checkpoint" not in path.read_text(), path

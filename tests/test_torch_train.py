@@ -196,10 +196,11 @@ def jax_run(refcache, jax_init):  # noqa: F811
     """tpureg in fp64: three steps on one batch; fp32 snapshots of the
     parameters and statistics before and after each step (with Adam's state
     after steps 1 and 2), and each step's metrics. Computed once a
-    session."""
+    session; the snapshot before step 1 is the initialisation's entry, not
+    stored twice."""
     def run():
         imgs, state = jax_init
-        snaps, metrics = {0: host_state(state, adam=False)}, []
+        snaps, metrics = {}, []
         with jax.enable_x64(True):
             state = x64_state(state)
             step = jax_make_train_step(donate=False)
@@ -208,9 +209,11 @@ def jax_run(refcache, jax_init):  # noqa: F811
                 state, m = step(state, x)
                 metrics.append({k: float(m[k]) for k in TERMS})
                 snaps[i] = host_state(state, adam=i < 3)
-        return imgs, snaps, metrics
+        return snaps, metrics
 
-    return refcache("flownet2_fp64_run", run)
+    snaps, metrics = refcache("flownet2_fp64_run", run)
+    imgs, init = refcache("flownet2_flax_init", flax_init)
+    return imgs, {0: init, **snaps}, metrics
 
 
 def sd_of(snap):

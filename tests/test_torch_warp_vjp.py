@@ -1,34 +1,30 @@
 """The backward of tpureg_torch's trilinear sample on the CPU: K6b's plain
 version (the positions' cotangent) against tpureg's ``jax.vjp``, and the
-wiring of ``_Sample3dKernel`` and ``_Sample2dKernel``, the card's autograd
-nodes, with their kernel launchers replaced by their plain versions.
+wiring of the ops ``tpureg::sample3d`` and ``tpureg::sample2d``
+(ops/library.py) with the backward they register for the card, on CPU
+tensors, where each op the backward calls runs its plain version; the ops
+run are recorded by a dispatch mode.
 
-On the card, ``_Sample3dKernel`` runs K6a in the forward and, in the
-backward, K6b (``sample3d_dpos_cuda``) for the positions and K6c
-(``sample3d_dvol_cuda``) for the volume; it saves the volume (only when the
-positions need a gradient) and the positions, never a per-channel basis.
-``_Sample2dKernel`` is its 2-D twin: K3 forward, K4 (``sample2d_dpos_cuda``)
-and K5 (``sample2d_dimg_cuda``) backward. Inputs come from numpy; the port
-is NCDHW, tpureg NDHWC.
+On the card, ``tpureg::sample3d`` runs K6a in the forward and, in the
+backward, K6b (``tpureg::sample3d_dpos``) for the positions and K6c
+(``tpureg::sample3d_dvol``) for the volume; it saves the volume (only when
+the positions need a gradient) and the positions, never a per-channel
+basis. ``tpureg::sample2d`` is its 2-D twin: K3 forward, K4
+(``sample2d_dpos``) and K5 (``sample2d_dimg``) backward. Inputs come from
+numpy; the port is NCDHW, tpureg NDHWC.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
 
 from tpureg.ops.warp import sample3d_gather as jax_sample3d
-from tpureg_torch.ops import warp as warp_ops
-from tpureg_torch.ops import (
-    sample2d_dimg_reference,
-    sample2d_dpos_reference,
-    sample2d_gather,
-    sample3d_dpos_reference,
-    sample3d_dvol_reference,
-    sample3d_gather,
-)
+from tpureg_torch.ops import sample2d_gather, sample3d_dpos_reference, sample3d_gather
+from test_torch_ops_library import card_autograd
 
 
 def _positions(seed, b, d, h, w, scale, smooth):
@@ -75,40 +71,37 @@ def test_dpos_reference_matches_jax_vjp(c, smooth, scale):
                                    atol=1e-6, rtol=1e-5)
 
 
-@pytest.fixture
-def plain_launchers(monkeypatch):
-    """``_Sample3dKernel``'s three launchers replaced by their plain
-    versions, each call recorded by name."""
-    calls = []
+class _Launches(TorchDispatchMode):
+    """The kernels the ops run, by name, in the order they run."""
 
-    def record(name, fn):
-        def call(*args):
-            calls.append(name)
-            return fn(*args)
-        return call
+    KERNELS = {"sample3d": "K6a", "sample3d_dpos": "K6b", "sample3d_dvol": "K6c",
+               "sample2d": "K3", "sample2d_dpos": "K4", "sample2d_dimg": "K5"}
 
-    monkeypatch.setattr(warp_ops, "sample3d_cuda",
-                        record("K6a", lambda vol, px, py, pz: sample3d_gather(vol, px, py, pz)))
-    monkeypatch.setattr(warp_ops, "sample3d_dpos_cuda",
-                        record("K6b", sample3d_dpos_reference))
-    monkeypatch.setattr(warp_ops, "sample3d_dvol_cuda",
-                        record("K6c", sample3d_dvol_reference))
-    return calls
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "tpureg":
+            self.calls.append(self.KERNELS[func.__name__.split(".")[0]])
+        return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("need_vol,need_pos", [(False, False), (False, True),
                                                (True, False), (True, True)],
                          ids=["none", "positions", "volume", "both"])
-def test_sample3d_kernel_wiring(plain_launchers, need_vol, need_pos):
+def test_sample3d_kernel_wiring(need_vol, need_pos):
     b, c, d, h, w, p = 1, 2, 4, 5, 6, 7
     rng = np.random.default_rng(42)
     vol = torch.from_numpy(rng.random((b, c, d, h, w))).requires_grad_(need_vol)
     pos = [torch.from_numpy(rng.random((b, p)) * (n + 1) - 1.0) for n in (w, h, d)]
     pos = [(torch.floor(t) + 0.05 + 0.9 * (t - torch.floor(t))).requires_grad_(need_pos)
            for t in pos]
-    out = warp_ops._Sample3dKernel.apply(vol, *pos)
+    node = card_autograd("sample3d")
+    with _Launches() as launches:
+        out = node(vol, *pos)
     torch.testing.assert_close(out, sample3d_gather(vol, *pos), atol=0, rtol=0)
-    assert plain_launchers == ["K6a"]
+    assert launches.calls == ["K6a"]
     if not (need_vol or need_pos):
         assert out.grad_fn is None
         return
@@ -117,53 +110,35 @@ def test_sample3d_kernel_wiring(plain_launchers, need_vol, need_pos):
     saved = out.grad_fn.saved_tensors
     assert [None if t is None else tuple(t.shape) for t in saved] == \
         [tuple(vol.shape) if need_pos else None] + [(b, p)] * 3
-    out.backward(torch.from_numpy(rng.standard_normal(out.shape)))
-    assert plain_launchers == ["K6a"] + ["K6c"] * need_vol + ["K6b"] * need_pos
+    with launches:
+        out.backward(torch.from_numpy(rng.standard_normal(out.shape)))
+    assert launches.calls == ["K6a"] + ["K6c"] * need_vol + ["K6b"] * need_pos
     inputs = [t for t, need in zip([vol, *pos], [need_vol] + [need_pos] * 3) if need]
     assert all(t.grad is not None for t in inputs)
     # the analytic gradient (the backward's cotangent is fp32, as the
     # kernels take it) against fp64 central differences of the forward
     assert torch.autograd.gradcheck(
-        lambda *args: warp_ops._Sample3dKernel.apply(*args), [
+        lambda *args: node(*args), [
             t.detach().requires_grad_(need)
             for t, need in zip([vol, *pos], [need_vol] + [need_pos] * 3)])
-
-
-@pytest.fixture
-def plain_launchers2d(monkeypatch):
-    """``_Sample2dKernel``'s three launchers replaced by their plain
-    versions, each call recorded by name."""
-    calls = []
-
-    def record(name, fn):
-        def call(*args):
-            calls.append(name)
-            return fn(*args)
-        return call
-
-    monkeypatch.setattr(warp_ops, "sample2d_cuda",
-                        record("K3", lambda img, px, py: sample2d_gather(img, px, py)))
-    monkeypatch.setattr(warp_ops, "sample2d_dpos_cuda",
-                        record("K4", sample2d_dpos_reference))
-    monkeypatch.setattr(warp_ops, "sample2d_dimg_cuda",
-                        record("K5", sample2d_dimg_reference))
-    return calls
 
 
 @pytest.mark.parametrize("need_img,need_pos", [(False, False), (False, True),
                                                (True, False), (True, True)],
                          ids=["none", "positions", "image", "both"])
-def test_sample2d_kernel_wiring(plain_launchers2d, need_img, need_pos):
+def test_sample2d_kernel_wiring(need_img, need_pos):
     b, c, h, w, p = 2, 3, 5, 6, 7
     rng = np.random.default_rng(43)
     img = torch.from_numpy(rng.random((b, c, h, w))).requires_grad_(need_img)
     pos = [torch.from_numpy(rng.random((b, p)) * (n + 1) - 1.0) for n in (w, h)]
     pos = [(torch.floor(t) + 0.05 + 0.9 * (t - torch.floor(t))).requires_grad_(need_pos)
            for t in pos]
-    out = warp_ops._Sample2dKernel.apply(img, *pos)
+    node = card_autograd("sample2d")
+    with _Launches() as launches:
+        out = node(img, *pos)
     torch.testing.assert_close(out, sample2d_gather(img, *pos), atol=0, rtol=0)
     # every forward is K3, whatever needs a gradient
-    assert plain_launchers2d == ["K3"]
+    assert launches.calls == ["K3"]
     if not (need_img or need_pos):
         assert out.grad_fn is None
         return
@@ -172,13 +147,14 @@ def test_sample2d_kernel_wiring(plain_launchers2d, need_img, need_pos):
     saved = out.grad_fn.saved_tensors
     assert [None if t is None else tuple(t.shape) for t in saved] == \
         [tuple(img.shape) if need_pos else None] + [(b, p)] * 2
-    out.backward(torch.from_numpy(rng.standard_normal(out.shape)))
-    assert plain_launchers2d == ["K3"] + ["K5"] * need_img + ["K4"] * need_pos
+    with launches:
+        out.backward(torch.from_numpy(rng.standard_normal(out.shape)))
+    assert launches.calls == ["K3"] + ["K5"] * need_img + ["K4"] * need_pos
     inputs = [t for t, need in zip([img, *pos], [need_img] + [need_pos] * 2) if need]
     assert all(t.grad is not None for t in inputs)
     # the analytic gradient (the kernels take an fp32 cotangent, and K4's
     # plain version forms fp32 bases) against fp64 central differences
     assert torch.autograd.gradcheck(
-        lambda *args: warp_ops._Sample2dKernel.apply(*args), [
+        lambda *args: node(*args), [
             t.detach().requires_grad_(need)
             for t, need in zip([img, *pos], [need_img] + [need_pos] * 2)])

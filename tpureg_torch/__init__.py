@@ -8,16 +8,20 @@ volumetric training path (VoxelMorph3D and AffineNet3D):
 - ``ops``: correlation (CUDA kernels K1 and K2, ``csrc/correlation*.cu``),
   bilinear warp (K3, K4, K5, ``csrc/warp2d*.cu``), trilinear 3-D warp (K6a,
   K6b, K6c, ``csrc/warp3d.cu``), channel norm, resize and the elastic field;
-  each kernel beside its plain PyTorch version;
+  each kernel one ``torch.library`` op ``tpureg::*`` (``ops/library.py``)
+  beside its plain PyTorch version;
 - ``nn``, ``models``: the FlowNet2 cascade (FlowNetC, FlowNetS, FlowNetSD,
   FlowNetFusion) with the reference's torch key names, and the 3-D models
   with flax's module names; NCHW and NCDHW inside;
 - ``reg``: the registration head; ``losses``: the multi-scale OFE loss and
   the volumetric losses; ``classical``: scaling-and-squaring integration;
 - ``train``: the eval and train steps, Adam, the schedule and checkpoints;
-  ``compat``: the weight bridge from tpureg's flax trees;
+  ``compat``: the weight bridge from tpureg's flax trees, the torch
+  checkpoint import, the Caffe reader and layer-ordered import;
+- ``serving``: the head's eval forward exported with ``torch.export``;
 - ``data``, ``metrics``, ``cli``: Analyze data and the volume and slice
-  pipelines, the numpy metric suite, the inference and training CLIs.
+  pipelines, the numpy metric suite, the inference, training, comparator
+  and export CLIs.
 
 Nothing here imports JAX or tpureg. Entry points run on the card unless the
 caller asks for the CPU.

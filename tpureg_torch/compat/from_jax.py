@@ -224,16 +224,22 @@ def state_dict_from_jax_raft(params, prefix: Tuple[str, ...] = ("predictor",)
 
 
 def load_adam_state_from_jax(optimizer: torch.optim.Optimizer, model, count,
-                             mu, nu, prefix: Tuple[str, ...] = ("predictor",)
-                             ) -> None:
+                             mu, nu, prefix: Tuple[str, ...] = ("predictor",),
+                             raft: bool = False) -> None:
     """Load optax's Adam state into ``optimizer``, a ``torch.optim.Adam``
     over ``model.parameters()`` in their order (as ``create_train_state``
     builds it). ``count`` is the update count; ``mu`` and ``nu`` are the
     moment trees (nested dicts of numpy arrays) rooted where the parameters
-    are, with the model's parameters under the module path ``prefix``.
-    Raises unless every parameter has both moments."""
-    exp_avg = state_dict_from_jax(mu, None, prefix)
-    exp_avg_sq = state_dict_from_jax(nu, None, prefix)
+    are, with the model's parameters under the module path ``prefix``,
+    mapped as ``state_dict_from_jax`` maps parameters (as
+    ``state_dict_from_jax_raft`` does with ``raft``). Raises unless every
+    parameter has both moments."""
+    if raft:
+        exp_avg = state_dict_from_jax_raft(mu, prefix)
+        exp_avg_sq = state_dict_from_jax_raft(nu, prefix)
+    else:
+        exp_avg = state_dict_from_jax(mu, None, prefix)
+        exp_avg_sq = state_dict_from_jax(nu, None, prefix)
     head = ".".join(prefix) + "." if prefix else ""
     names = [n for n, _ in model.named_parameters()]
     keys = [n[len(head):] if n.startswith(head) else n for n in names]

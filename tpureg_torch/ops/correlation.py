@@ -10,10 +10,12 @@ The output channel order is row-major over (dy, dx), which FlowNetC's
 conv3_1 weights depend on. Layout NCHW; the output has the input's dtype and
 is accumulated in fp32.
 
-``correlation`` sends a CUDA tensor to kernel K1 (``csrc/correlation.cu``),
-whose backward is kernel K2 (``csrc/correlation_bwd.cu``), and a CPU tensor
-to the plain ``correlation_reference``, whose backward is autograd's; there
-is no other route. K2 computes
+``correlation`` calls the op ``torch.ops.tpureg.correlation``
+(``ops/library.py``), which sends a CUDA tensor to kernel K1
+(``csrc/correlation.cu``), whose backward is kernel K2
+(``csrc/correlation_bwd.cu``), and a CPU tensor to ``correlation_plain``,
+whose backward is autograd's through it; there is no other route. K2
+computes
 
     df1[b,c,y,x] = (1/C) Σ_d g[b,d,y,x] · f2[b,c,y+dy,x+dx]
     df2[b,c,y,x] = (1/C) Σ_d g[b,d,y-dy,x-dx] · f1[b,c,y-dy,x-dx]
@@ -28,10 +30,11 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_lib import DTYPE_CODES, check, load, stream_handle
+from .warp import _compute_dtype
 
-__all__ = ["correlation", "correlation_reference", "correlation_cuda",
-           "correlation_bwd_cuda", "correlation_bwd_reference",
-           "displacement_count"]
+__all__ = ["correlation", "correlation_reference", "correlation_plain",
+           "correlation_cuda", "correlation_bwd_cuda",
+           "correlation_bwd_reference", "displacement_count"]
 
 
 def displacement_count(max_displacement: int, stride2: int = 1) -> int:
@@ -39,16 +42,12 @@ def displacement_count(max_displacement: int, stride2: int = 1) -> int:
     return 2 * (max_displacement // stride2) + 1
 
 
-def correlation_reference(f1, f2, max_displacement: int, stride2: int = 1):
-    """Plain PyTorch correlation: a zero pad, then the K² shifted dot products.
-
-    NCHW in, ``[B, K*K, H, W]`` out, in fp32 and cast to the input dtype.
-    """
+def _correlation(f1, f2, max_displacement, stride2, compute):
     b, c, h, w = f1.shape
     md, s2 = max_displacement, stride2
     k = displacement_count(md, s2)
-    a = f1.float()
-    f2p = F.pad(f2.float(), (md, md, md, md))
+    a = f1.to(compute)
+    f2p = F.pad(f2.to(compute), (md, md, md, md))
     cols = []
     for iy in range(k):
         for ix in range(k):
@@ -58,6 +57,21 @@ def correlation_reference(f1, f2, max_displacement: int, stride2: int = 1):
             cols.append((a * shifted).sum(1))
     out = torch.stack(cols, 1)
     return (out / c).to(f1.dtype)
+
+
+def correlation_reference(f1, f2, max_displacement: int, stride2: int = 1):
+    """Plain PyTorch correlation: a zero pad, then the K² shifted dot products.
+
+    NCHW in, ``[B, K*K, H, W]`` out, in fp32 and cast to the input dtype:
+    what K1 is held to.
+    """
+    return _correlation(f1, f2, max_displacement, stride2, torch.float32)
+
+
+def correlation_plain(f1, f2, max_displacement: int, stride2: int = 1):
+    """The op's CPU version: ``correlation_reference`` computed in fp64 for
+    fp64 operands (in fp32 for the others)."""
+    return _correlation(f1, f2, max_displacement, stride2, _compute_dtype(f1))
 
 
 def correlation_bwd_reference(f1, f2, grad, max_displacement: int,
@@ -140,26 +154,8 @@ def correlation_bwd_cuda(f1, f2, grad, max_displacement: int, stride2: int = 1):
 correlation_bwd_cuda.launches = 0
 
 
-class _CorrelationKernel(torch.autograd.Function):
-    """K1 as an autograd node whose backward is K2."""
-
-    @staticmethod
-    def forward(ctx, f1, f2, max_displacement, stride2):
-        ctx.save_for_backward(f1, f2)
-        ctx.geometry = (max_displacement, stride2)
-        return correlation_cuda(f1, f2, max_displacement, stride2)
-
-    @staticmethod
-    def backward(ctx, grad):
-        f1, f2 = ctx.saved_tensors
-        df1, df2 = correlation_bwd_cuda(f1, f2, grad.contiguous(), *ctx.geometry)
-        return df1, df2, None, None
-
-
 def correlation(f1, f2, max_displacement: int, stride2: int = 1):
-    """Correlation cost volume: kernels K1 (forward) and K2 (backward) on
-    CUDA, the plain version and autograd on CPU."""
-    if f1.is_cuda or f2.is_cuda:
-        return _CorrelationKernel.apply(f1.contiguous(), f2.contiguous(),
-                                        max_displacement, stride2)
-    return correlation_reference(f1, f2, max_displacement, stride2)
+    """Correlation cost volume: the op ``tpureg::correlation``, kernels K1
+    (forward) and K2 (backward) on CUDA, the plain version and autograd on
+    the CPU."""
+    return torch.ops.tpureg.correlation(f1, f2, max_displacement, stride2)

@@ -14,9 +14,10 @@ Images are NCHW; flows are ``[B, 2, h, w]`` with channel 0 the x and
 channel 1 the y displacement. Volumes are NCDHW; 3-D flows are
 ``[B, 3, D, H, W]`` with channels (u_x, u_y, u_z), tpureg's last axis.
 
-``sample2d`` and ``sample3d`` send a CUDA tensor to the hand-written kernels
-and a CPU tensor to the plain gathers and autograd; there is no other route.
-On the card, in 2-D:
+``sample2d`` and ``sample3d`` call the ops ``torch.ops.tpureg.sample2d`` and
+``sample3d`` (``ops/library.py``), which send a CUDA tensor to the
+hand-written kernels and a CPU tensor to the plain gathers and autograd;
+there is no other route. On the card, in 2-D:
 
 - K3 (``csrc/warp2d.cu``) samples in every forward;
 - K4 (``csrc/warp2d_grad.cu``) is the positions' cotangent
@@ -43,10 +44,11 @@ import torch
 
 from .cuda_lib import DTYPE_CODES, check, load, stream_handle
 
-__all__ = ["base_grid", "sample2d", "sample2d_gather", "sample2d_cuda",
+__all__ = ["base_grid", "sample2d", "sample2d_gather", "sample2d_plain", "sample2d_cuda",
            "sample2d_dpos_cuda", "sample2d_dimg_cuda", "sample2d_taps_reference",
            "sample2d_dpos_reference", "sample2d_dimg_reference", "sample2d_nearest",
-           "warp2d", "sample3d", "sample3d_gather", "sample3d_cuda", "sample3d_dpos_cuda",
+           "warp2d", "sample3d", "sample3d_gather", "sample3d_plain", "sample3d_cuda",
+           "sample3d_dpos_cuda",
            "sample3d_dvol_cuda", "sample3d_taps_reference",
            "sample3d_dpos_reference", "sample3d_dvol_reference", "voxel_grid",
            "warp3d"]
@@ -68,6 +70,12 @@ def sample2d_gather(img, px, py):
     """Plain 4-tap gather: bilinear sample of ``img`` [B,C,H,W] at float
     pixel positions ``px``/``py`` [B, ...]; each tap outside the image
     contributes zero. Returns [B, C, ...] in ``img``'s dtype."""
+    return sample2d_plain(img, px, py).to(img.dtype)
+
+
+def sample2d_plain(img, px, py):
+    """``sample2d_gather`` before its last cast: the sample in fp32 (fp64
+    for an fp64 image), as K3 returns it; the op's CPU version."""
     b, c, h, w = img.shape
     out_shape = (b, c, *px.shape[1:])
     compute = _compute_dtype(img)
@@ -94,7 +102,7 @@ def sample2d_gather(img, px, py):
         + tap(x0i, y0i + 1, (1 - fx) * fy)
         + tap(x0i + 1, y0i + 1, fx * fy)
     )
-    return out.reshape(out_shape).to(img.dtype)
+    return out.reshape(out_shape)
 
 
 def sample2d_taps_reference(img, px, py):
@@ -206,7 +214,8 @@ def sample2d_dpos_cuda(grad, img, px, py):
     if h * w >= 2**31 or p >= 2**31 - 32:
         raise ValueError(f"sample2d_dpos_cuda takes planes of fewer than 2^31 pixels "
                          f"and positions, got {h} x {w} and {p}")
-    dpx, dpy = torch.empty((2, b, p), dtype=torch.float32, device=img.device).unbind(0)
+    dpx, dpy = (torch.empty((b, p), dtype=torch.float32, device=img.device)
+                for _ in range(2))
     lib = load()
     with torch.cuda.device(img.device):
         code = lib.tpureg_warp2d_dpos(
@@ -247,46 +256,20 @@ def sample2d_dimg_cuda(grad, px, py, image_shape, dtype=torch.float32):
 sample2d_dimg_cuda.launches = 0
 
 
-class _Sample2dKernel(torch.autograd.Function):
-    """The card's bilinear sample as an autograd node: K3 in the forward;
-    in the backward K4 for the positions' cotangent (from the image, saved
-    only when the positions need a gradient) and K5 for the image's."""
-
-    @staticmethod
-    def forward(ctx, img, px, py):
-        ctx.image = (tuple(img.shape), img.dtype)
-        ctx.save_for_backward(img if any(ctx.needs_input_grad[1:]) else None, px, py)
-        return sample2d_cuda(img, px, py)
-
-    @staticmethod
-    def backward(ctx, grad):
-        img, px, py = ctx.saved_tensors
-        grad = grad.float().contiguous()
-        dimg = None
-        if ctx.needs_input_grad[0]:
-            dimg = sample2d_dimg_cuda(grad, px, py, *ctx.image)
-        dpos = (None, None)
-        if any(ctx.needs_input_grad[1:]):
-            dpos = sample2d_dpos_cuda(grad, img, px, py)
-        return (dimg, *(d if need else None
-                        for d, need in zip(dpos, ctx.needs_input_grad[1:])))
-
-
 def sample2d(img, px, py):
     """Bilinear sample of NCHW ``img`` at float pixel positions (px, py).
 
     ``px``/``py`` are [B, H_out, W_out]; returns [B, C, H_out, W_out] in
-    ``img``'s dtype, with each out-of-image tap contributing zero. Kernels
-    K3 (forward), K4 and K5 (backward) on CUDA, the plain gather and
-    autograd on CPU.
+    ``img``'s dtype, with each out-of-image tap contributing zero. The op
+    ``tpureg::sample2d``: kernels K3 (forward), K4 and K5 (backward) on
+    CUDA, the plain gather and autograd on the CPU; the positions go in as
+    [B, P] in fp32 (fp64 for an fp64 image).
     """
-    if img.is_cuda:
-        b, c = img.shape[:2]
-        out = _Sample2dKernel.apply(img.contiguous(),
-                                    px.reshape(b, -1).float().contiguous(),
-                                    py.reshape(b, -1).float().contiguous())
-        return out.reshape(b, c, *px.shape[1:]).to(img.dtype)
-    return sample2d_gather(img, px, py)
+    b, c = img.shape[:2]
+    compute = _compute_dtype(img)
+    out = torch.ops.tpureg.sample2d(img, *(t.reshape(b, -1).to(compute)
+                                           for t in (px, py)))
+    return out.reshape(b, c, *px.shape[1:]).to(img.dtype)
 
 
 def sample2d_nearest(img, px, py):
@@ -368,6 +351,12 @@ def sample3d_gather(vol, px, py, pz):
     ``wgt = cx·cy·cz``, then ``value·(wgt·inb)``, summed over dz, dy, dx.
     Computes in fp32 (fp64 for an fp64 volume); returns [B, C, ...] in
     ``vol``'s dtype."""
+    return sample3d_plain(vol, px, py, pz).to(vol.dtype)
+
+
+def sample3d_plain(vol, px, py, pz):
+    """``sample3d_gather`` before its last cast: the sample in fp32 (fp64
+    for an fp64 volume), as K6a returns it; the op's CPU version."""
     b, c, d, h, w = vol.shape
     out_shape = (b, c, *px.shape[1:])
     compute = _compute_dtype(vol)
@@ -399,7 +388,7 @@ def sample3d_gather(vol, px, py, pz):
                 wgt = ((fx if dx else 1 - fx) * (fy if dy else 1 - fy)
                        * (fz if dz else 1 - fz))
                 out = out + tap(x0i + dx, y0i + dy, z0i + dz, wgt)
-    return out.reshape(out_shape).to(vol.dtype)
+    return out.reshape(out_shape)
 
 
 def sample3d_taps_reference(vol, px, py, pz):
@@ -478,8 +467,8 @@ def sample3d_dpos_cuda(grad, vol, px, py, pz):
     b, c, d, h, w = vol.shape
     p = px.shape[1]
     _check_cotangent("sample3d_dpos_cuda", grad, (b, c, p), vol.device)
-    dpx, dpy, dpz = torch.empty((3, b, p), dtype=torch.float32,
-                                device=vol.device).unbind(0)
+    dpx, dpy, dpz = (torch.empty((b, p), dtype=torch.float32, device=vol.device)
+                     for _ in range(3))
     lib = load()
     with torch.cuda.device(vol.device):
         code = lib.tpureg_warp3d_dpos(
@@ -519,43 +508,18 @@ def sample3d_dvol_cuda(grad, px, py, pz, volume_shape, dtype=torch.float32):
 sample3d_dvol_cuda.launches = 0
 
 
-class _Sample3dKernel(torch.autograd.Function):
-    """The card's trilinear sample as an autograd node: K6a in the forward;
-    in the backward K6b for the positions' cotangent (from the volume, saved
-    only when the positions need a gradient) and K6c for the volume's."""
-
-    @staticmethod
-    def forward(ctx, vol, px, py, pz):
-        ctx.volume = (tuple(vol.shape), vol.dtype)
-        ctx.save_for_backward(vol if any(ctx.needs_input_grad[1:]) else None,
-                              px, py, pz)
-        return sample3d_cuda(vol, px, py, pz)
-
-    @staticmethod
-    def backward(ctx, grad):
-        vol, px, py, pz = ctx.saved_tensors
-        grad = grad.float().contiguous()
-        dvol = None
-        if ctx.needs_input_grad[0]:
-            dvol = sample3d_dvol_cuda(grad, px, py, pz, *ctx.volume)
-        dpos = (None, None, None)
-        if any(ctx.needs_input_grad[1:]):
-            dpos = sample3d_dpos_cuda(grad, vol, px, py, pz)
-        return (dvol, *(d if need else None
-                        for d, need in zip(dpos, ctx.needs_input_grad[1:])))
-
-
 def sample3d(vol, px, py, pz):
     """Trilinear sample of NCDHW ``vol`` at float voxel positions (px, py,
     pz), each [B, ...]; returns [B, C, ...] in ``vol``'s dtype, with each
-    out-of-volume corner contributing zero. Kernels K6a (forward), K6b and
-    K6c (backward) on CUDA, the plain gather and autograd on CPU."""
-    if vol.is_cuda:
-        b, c = vol.shape[:2]
-        pos = [t.reshape(b, -1).float().contiguous() for t in (px, py, pz)]
-        out = _Sample3dKernel.apply(vol.contiguous(), *pos)
-        return out.reshape(b, c, *px.shape[1:]).to(vol.dtype)
-    return sample3d_gather(vol, px, py, pz)
+    out-of-volume corner contributing zero. The op ``tpureg::sample3d``:
+    kernels K6a (forward), K6b and K6c (backward) on CUDA, the plain gather
+    and autograd on the CPU; the positions go in as [B, P] in fp32 (fp64
+    for an fp64 volume)."""
+    b, c = vol.shape[:2]
+    compute = _compute_dtype(vol)
+    out = torch.ops.tpureg.sample3d(vol, *(t.reshape(b, -1).to(compute)
+                                           for t in (px, py, pz)))
+    return out.reshape(b, c, *px.shape[1:]).to(vol.dtype)
 
 
 def voxel_grid(d: int, h: int, w: int, device=None, dtype=torch.float32):

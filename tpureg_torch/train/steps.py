@@ -22,9 +22,10 @@ backward (``torch.utils.checkpoint``, non-reentrant), tpureg's
 forward, ``"dots"`` keeps the outputs of the convolutions and matrix
 products (tpureg's ``checkpoint_dots``) and recomputes the rest. The casts
 of the bf16 step stay outside the recomputed region. The hand-written
-kernels are ``ctypes`` calls, which no dispatch mode sees, so they always
-run again: K1 and K3 launch once more in the backward for each launch in
-the forward, since the last tensor the forward saves is the grid warp's.
+kernels are ``torch.library`` ops, which the "dots" policy recomputes as
+it does every op but the products: K1 and K3 launch once more in the
+backward for each launch in the forward, since the last tensor the forward
+saves is the grid warp's.
 BatchNorm's recomputed forward would update its running statistics a
 second time; the step puts back the statistics of the first forward.
 
