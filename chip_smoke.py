@@ -138,6 +138,31 @@
    anywhere and 2e-3 px on average); ``python -m tpureg_torch.cli.export
    ... --check`` on the card; the artifact call and the live head timed
    (median of 10 after 2);
+8m. data parallel and ``--fsdp`` (ROADMAP A.7a-b): (i) over an NCCL group of
+   one on cuda:0, joined from torchrun's environment
+   (``parallel.init_from_env``), FlowNet2's data-parallel train step at
+   256², batch 8, fp32 and bf16, against the single-process step from the
+   same weights on the same batch (cuDNN deterministic): the metrics and
+   running statistics equal to the bit, the update within twice the
+   single-process step's distance from itself (atomics in the resizes'
+   backward), with the train step's launches (K1 1, K2 1, K3 6, K4 5); both
+   timed, single, DP, DP, single (the collectives' cost on one card); the
+   ``--fsdp`` training CLI for one epoch on phase 8's volumes, its
+   checkpoint restored without it; (ii) two
+   ranks of this script (``--dp-rank``) on the one card over gloo, named
+   explicitly to ``init_from_env`` (NCCL refuses two ranks on one device):
+   the fp32 DP step, 4 rows a rank, against (i)'s single-process step on
+   the 8 (metrics and running statistics within 1e-4; the gradients summed
+   over the ranks within 0.5 in relative L2 and 1 ± 0.25 in their
+   projection on the single-process gradient, where one W = 2 times too
+   large reads 1 and 2 and a change of rounding alone moves FlowNet2's fp32
+   gradient here by about 0.1; the update within twice the single-process
+   step's own distance under a change of rounding), each rank's launches as
+   (i)'s; the FSDP step over the two ranks against the
+   DP step (metrics and statistics equal to the bit, the update as close as
+   the single-process step is to itself), each sharded parameter halved;
+   the ``--fsdp`` CLI over the two ranks on two synthetic batches, rank 0
+   alone writing;
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 (d/dgrid) and K5 (d/dinput),
@@ -179,6 +204,8 @@ import glob
 import io
 import json
 import os
+import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -188,6 +215,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpureg_torch.cli import inference as cli_inference
@@ -228,6 +256,8 @@ from tpureg_torch.ops.warp import (
     voxel_grid,
     warp2d,
 )
+from tpureg_torch.nn import BatchNorm2d
+from tpureg_torch.parallel import init_from_env, local_rows, shard_train_state
 from tpureg_torch.reg import OpticalFlowReg
 from tpureg_torch.serving import (compare_outputs, deterministic_cudnn, export_registration,
                                   load_artifact, save_artifact)
@@ -243,6 +273,7 @@ from tpureg_torch.train import (
     save_best_weights,
     set_fp32_numerics,
 )
+from tpureg_torch.train import checkpoint as checkpoint_module
 from tpureg_torch.utils import trace
 from torch_quality_phantom import make_pairs as phantom_pairs
 
@@ -2448,6 +2479,429 @@ def export_path(flownet2):
     tmp.cleanup()
 
 
+# phase 8m(ii): the ranks, each this script run with ``--dp-rank``
+DP_WORLD = 2
+DP_TIMEOUT = 600
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def update_of(sd, before):
+    """The change of each weight of state dict ``sd`` from ``before``
+    (fp64, on the host); running statistics left out."""
+    return {k: v.double().cpu() - before[k].double().cpu() for k, v in sd.items()
+            if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+
+
+def relative_l2(got, want):
+    diff2 = sum(float(((got[k] - want[k]) ** 2).sum()) for k in want)
+    return (diff2 / sum(float((want[k] ** 2).sum()) for k in want)) ** 0.5
+
+
+def stats_of(sd):
+    return {k: v.double().cpu() for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def stats_error(got, want):
+    """The largest difference of each running statistic from ``want``'s,
+    relative to that tensor's largest value."""
+    return max(float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30))
+               for k in want)
+
+
+def host_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def grads_of(model):
+    """Each parameter's gradient (fp64, on the host), as the last step left
+    it before its Adam update."""
+    return {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+
+
+def biases_before_batchnorm(model):
+    """The names of the convolution biases that a BatchNorm in training
+    normalises away: their gradient is zero in exact arithmetic, so rounding
+    alone is left of it, and a tensor's relative distance reads noise."""
+    names = []
+    for prefix, module in model.named_modules():
+        children = list(module.named_children())
+        for (name, a), (_, b) in zip(children, children[1:]):
+            if isinstance(b, BatchNorm2d) and getattr(a, "bias", None) is not None:
+                names.append(f"{prefix}.{name}.bias" if prefix else f"{name}.bias")
+    return names
+
+
+def tensor_distances(grads, rgrads):
+    """Each tensor's relative L2 distance of ``grads`` from ``rgrads``."""
+    return {k: float((grads[k] - rgrads[k]).norm()) / max(float(rgrads[k].norm()), 1e-30)
+            for k in rgrads}
+
+
+def quantiles(distances, skip):
+    """The 10%, 50% and 90% quantiles and the largest of ``distances``
+    (``tensor_distances``) outside ``skip``, as text."""
+    q = sorted(v for k, v in distances.items() if k not in skip)
+    return "/".join(f"{v:.3g}" for v in (q[len(q) // 10], q[len(q) // 2],
+                                          q[9 * len(q) // 10], q[-1]))
+
+
+def projection(grads, rgrads):
+    """<grads, rgrads> / <rgrads, rgrads> over the whole model: 1 for the
+    same gradient, W for one W times too large."""
+    return (sum(float((grads[k] * rgrads[k]).sum()) for k in rgrads)
+            / sum(float((rgrads[k] ** 2).sum()) for k in rgrads))
+
+
+@contextlib.contextmanager
+def torchrun_env(rank, world, port):
+    """``torchrun``'s environment for a rank of this process's group, every
+    rank on card 0; the variables put back afterwards."""
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def flownet2_train_state(base=None):
+    """Phase 7's FlowNet2 (seeded random weights; a copy of ``base`` when
+    given) on the card, with a fresh Adam state."""
+    model = (copy.deepcopy(base) if base is not None else
+             OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(1)))
+    return create_train_state(model.to(DEV))
+
+
+def dp_world_of_one(base, train_dirs):
+    """8m(i): the data-parallel step over an NCCL group of one on cuda:0
+    against the single-process step, launches, times, the --fsdp CLI."""
+    imgs, _ = phantom_batch(BATCH, SIZE, seed=6)
+    imgs = imgs.to(DEV)
+    group = dist.group.WORLD
+    before, reference, steps = None, None, {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        one, again, dp = (flownet2_train_state(base) for _ in range(3))
+        before = before or host_state(one.model)
+        one_step = make_train_step(one, compute_dtype=dtype)
+        dp_step = make_train_step(dp, compute_dtype=dtype, group=group)
+        with deterministic_cudnn():
+            m_one = one_step(imgs)
+            m_again = make_train_step(again, compute_dtype=dtype)(imgs)
+            torch.cuda.synchronize()
+            reset_counts()
+            m_dp = dp_step(imgs[local_rows(BATCH, 1, 0)])
+            torch.cuda.synchronize()
+            launches = counts()
+        sd_one = host_state(one.model)
+        u_one = update_of(sd_one, before)
+        if name == "fp32":
+            g_one, g_again = grads_of(one.model), grads_of(again.model)
+            g_spread = (gradient_distance(g_again, g_one)[0],
+                        tensor_distances(g_again, g_one), projection(g_again, g_one))
+            del g_again
+        metrics = max(abs(float(m[k]) - float(m_one[k])) for m in (m_dp, m_again)
+                      for k in m_one)
+        stats = max(stats_error(stats_of(host_state(m.model)), stats_of(sd_one))
+                    for m in (dp, again))
+        update = relative_l2(update_of(host_state(dp.model), before), u_one)
+        spread = relative_l2(update_of(host_state(again.model), before), u_one)
+        print(f"  (i) {name}: DP step over NCCL, world 1, launches {launches}; against "
+              f"the single-process step from the same weights on the same batch, cuDNN "
+              f"deterministic: metrics and running statistics (the forward) differ by "
+              f"{metrics:.3g} and {stats:.3g} (tolerance 0: the all-reduce of one rank "
+              f"copies), the update by {update:.3g} in relative L2 (tolerance twice "
+              f"the single-process step's distance from itself, {spread:.3g}: some "
+              f"CUDA ops of the backward add with atomics)")
+        require(launches == TRAIN_LAUNCHES,
+                f"{name}: the DP step should launch {TRAIN_LAUNCHES}")
+        require(metrics == 0 and stats == 0 and update <= 2 * spread,
+                f"{name}: the world-of-one DP step differs from the single-process step")
+        if name == "fp32":
+            reference = {"metrics": {k: float(v) for k, v in m_one.items()},
+                         "update": u_one, "stats": stats_of(sd_one), "spread": spread,
+                         "grads": g_one, "grad_spread": g_spread}
+        steps[name] = (one_step, dp_step)
+        del again, sd_one
+    # the collectives' cost on one card: single, DP, DP, single
+    for name, (one_step, dp_step) in steps.items():
+        label = f"train step {name}, batch {BATCH} at 256²"
+        first = step_times(f"8m(i) single-process {label}", lambda: one_step(imgs))
+        dp1 = step_times(f"8m(i) DP world-1 (NCCL) {label}", lambda: dp_step(imgs))
+        dp2 = step_times(f"8m(i) DP world-1 (NCCL) {label}, again", lambda: dp_step(imgs))
+        last = step_times(f"8m(i) single-process {label}, again", lambda: one_step(imgs))
+        print(f"  (i) {name}: DP world 1 / single process: "
+              f"{(dp1 + dp2) / (first + last):.3f} (medians {dp1:.3f}, {dp2:.3f} "
+              f"against {first:.3f}, {last:.3f} ms)")
+    del steps
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        common = ["--model", "flownet2", "--img_dir", train_dirs["img"], "--seg_dir",
+                  train_dirs["seg"], "--batch_size", str(BATCH), "--workdir", work,
+                  "--logdir", os.path.join(work, "log")]
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            state = cli_train.main(common + ["--epochs", "1", "--cp", "0", "--fsdp"],
+                                   device="cuda")
+        torch.cuda.synchronize()
+        text, launches = out.getvalue(), counts()
+        print(f"  (i) --fsdp CLI, one epoch on phase 8's volumes: {time.time() - t0:.1f} s,"
+              f" {state.step} steps, {len(state.shards.dims)} sharded parameters, "
+              f"launches {launches}")
+        for line in cli_summary(text) + [l for l in text.splitlines() if "FSDP" in l]:
+            print(f"    {line}")
+        require("FSDP: params/opt-state sharded over 1 devices" in text
+                and "EPOCH 1/1" in text and "saving new best weights" in text
+                and state.step == 80, "the --fsdp CLI did not train one epoch or save")
+        require(all(launches[k] > 0 for k in ("correlation", "correlation_bwd", "warp2d",
+                                              "warp2d_dpos")),
+                "the --fsdp CLI did not launch K1-K4")
+        del state
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = cli_train.main(common + ["--epochs", "1", "--cp", "1"], device="cuda")
+        require("loading checkpoint state" in out.getvalue() and state.step == 80,
+                "the --fsdp checkpoint did not restore in a single process")
+        print("    its checkpoint restores in a single process (no --fsdp): "
+              f"step {state.step}")
+        del state
+    return before, reference
+
+
+def dp_two_ranks(base, before, reference):
+    """8m(ii): two ranks on the one card over gloo (named explicitly: NCCL
+    refuses two ranks on one device), each running this script with
+    ``--dp-rank``; held against the single-process step of (i)."""
+    print("  (ii) two ranks on cuda:0 over gloo, named explicitly (NCCL refuses two "
+          "ranks on one device); gloo stages each CUDA tensor of a collective "
+          "through host memory itself")
+    folder = tempfile.mkdtemp(prefix="dp_ranks_")
+    port = free_port()
+    logs = [open(os.path.join(folder, f"log{r}.txt"), "w") for r in range(DP_WORLD)]
+    procs = []
+    for r in range(DP_WORLD):
+        with torchrun_env(r, DP_WORLD, port):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", folder],
+                stdout=logs[r], stderr=subprocess.STDOUT))
+    try:
+        # meanwhile the yardsticks, changes of rounding only: the
+        # single-process step with cuDNN's default algorithms (its
+        # transposed convolutions add with atomics), and on the batch with
+        # its halves swapped
+        imgs, _ = phantom_batch(BATCH, SIZE, seed=6)
+        spreads = {"itself (i)": reference["spread"]}
+        grad_spreads = {"itself (i)": reference["grad_spread"]}
+        for label, batch, deterministic in (
+                ("cuDNN's default algorithms", imgs, False),
+                ("halves swapped", torch.cat([imgs[BATCH // 2:], imgs[:BATCH // 2]]),
+                 True)):
+            other = flownet2_train_state(base)
+            with (deterministic_cudnn() if deterministic else contextlib.nullcontext()):
+                make_train_step(other)(batch.to(DEV))
+            spreads[label] = relative_l2(update_of(host_state(other.model), before),
+                                         reference["update"])
+            g_other = grads_of(other.model)
+            grad_spreads[label] = (gradient_distance(g_other, reference["grads"])[0],
+                                   tensor_distances(g_other, reference["grads"]),
+                                   projection(g_other, reference["grads"]))
+            del g_other
+            del other
+        spread = max(spreads.values())
+        torch.cuda.empty_cache()
+        deadline = time.time() + DP_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(folder, f"log{r}.txt")) as f:
+            log = f.read()
+        print(f"  rank {r}: " + f"\n  rank {r}: ".join(log.strip().splitlines()[-12:]))
+        require(p.returncode == 0, f"rank {r} of the gloo run failed (exit {p.returncode})")
+    ranks = [json.load(open(os.path.join(folder, f"rank{r}.json"))) for r in range(DP_WORLD)]
+    dp_sd = torch.load(os.path.join(folder, "dp.pt"), weights_only=True)
+    dp_grads = {k: v.double() for k, v in
+                torch.load(os.path.join(folder, "dp_grads.pt"), weights_only=True).items()}
+    fsdp_sd = torch.load(os.path.join(folder, "fsdp.pt"), weights_only=True)
+    shutil.rmtree(folder, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        for label in ("dp", "fsdp"):
+            require(res[label]["launches"] == TRAIN_LAUNCHES,
+                    f"rank {r} {label}: the step should launch {TRAIN_LAUNCHES}")
+            require(res[label]["from_rank0"] == 0.0,
+                    f"rank {r} {label}: the ranks' weights differ")
+        require(res["dp"]["metrics"] == ranks[0]["dp"]["metrics"],
+                "the ranks' metrics differ")
+        for k, (held, full) in res["fsdp"]["shares"].items():
+            require(2 * held == full, f"rank {r}: {k} is not halved under FSDP")
+    metrics = max(abs(ranks[0]["dp"]["metrics"][k] / reference["metrics"][k] - 1)
+                  for k in reference["metrics"])
+    update = relative_l2(update_of(dp_sd, before), reference["update"])
+    ref = reference["grads"]
+    skip = set(biases_before_batchnorm(base))
+    grads = (gradient_distance(dp_grads, ref)[0], projection(dp_grads, ref),
+             quantiles(tensor_distances(dp_grads, ref), skip))
+    del dp_grads
+    stats = stats_error(stats_of(dp_sd), reference["stats"])
+    fsdp_metrics = ranks[0]["fsdp"]["metrics"] == ranks[0]["dp"]["metrics"]
+    fsdp_stats = stats_error(stats_of(fsdp_sd), stats_of(dp_sd))
+    fsdp = relative_l2(update_of(fsdp_sd, before), update_of(dp_sd, before))
+    print(f"  (ii) fp32 DP step, 4 rows a rank, against the single-process step on "
+          f"the 8 (cuDNN deterministic): metrics {metrics:.3g} relative (tolerance "
+          f"1e-4), running statistics {stats:.3g} of each tensor's largest value "
+          f"(tolerance 1e-4), update {update:.3g} in relative L2 (tolerance twice the "
+          f"larger distance of the single-process step from itself under a change "
+          f"of rounding: " + ", ".join(f"{k} {v:.3g}" for k, v in spreads.items())
+          + ")")
+    print(f"  (ii) fp32 DP step's gradients, summed over the ranks before Adam, against "
+          f"the single-process step's on the 8: relative L2 {grads[0]:.3g} over the "
+          f"model (tolerance 0.5), projection on it {grads[1]:.6g} (tolerance 1 ± 0.25; "
+          f"a gradient W = 2 times too large reads 1 and 2), per tensor 10/50/90% and "
+          f"worst {grads[2]} (the {len(skip)} convolution biases that a BatchNorm "
+          f"normalises away, zero but for rounding, left out). The single-process "
+          f"step's own under a change of rounding, the same figures: "
+          + "; ".join(f"{k} {v[0]:.3g}, {v[2]:.6g}, {quantiles(v[1], skip)}"
+                      for k, v in grad_spreads.items()))
+    print(f"  (ii) FSDP step over the two ranks, {len(ranks[0]['fsdp']['shares'])} "
+          f"parameters halved on each, against the DP step: metrics equal "
+          f"{fsdp_metrics}, running statistics {fsdp_stats:.3g} (tolerance 0: the "
+          f"same arithmetic, the forward deterministic), the update {fsdp:.3g} in "
+          f"relative L2 (tolerance twice the yardsticks' largest); step times "
+          f"(host clock, one step, gloo through host memory): DP "
+          f"{ranks[0]['dp']['seconds']:.3f} s, FSDP {ranks[0]['fsdp']['seconds']:.3f} s")
+    cli = ranks[0]["cli"]
+    print(f"  (ii) --fsdp CLI over the two ranks, --synthetic 2 at 256², batch 8: "
+          f"steps {[r['cli']['step'] for r in ranks]}, files written by rank 0 "
+          f"{cli['written']}, by rank 1 {ranks[1]['cli']['written']}, train loss "
+          f"{cli['loss']}")
+    require(metrics <= 1e-4 and stats <= 1e-4 and update <= 2 * spread,
+            "the two-rank DP step and the single-process step disagree")
+    require(grads[0] <= 0.5 and abs(grads[1] - 1) <= 0.25,
+            "the two-rank DP step's summed gradients and the single-process step's "
+            "disagree")
+    require(fsdp_metrics and fsdp_stats == 0 and fsdp <= 2 * spread,
+            "the two-rank FSDP step differs from the DP step")
+    # (best weights only where the validation loss falls below the CLI's
+    # initial 1e5, which a random FlowNet2's does not)
+    require([r["cli"]["step"] for r in ranks] == [2, 2]
+            and os.path.join("Checkpoints", "Unsupervised", "FlowNet2",
+                             "training_state.pt") in cli["written"]
+            and ranks[1]["cli"]["written"] == [] and np.isfinite(cli["loss"]),
+            "the two-rank --fsdp CLI did not train or checkpoint, or rank 1 wrote")
+
+
+def dp_rank(folder):
+    """One rank of 8m(ii): FlowNet2's fp32 DP step and FSDP step on its 4
+    rows of phase 7's batch (cuDNN deterministic), then the --fsdp CLI on
+    two synthetic batches, over a gloo group of two on cuda:0 that it joins
+    from torchrun's environment, gloo named (NCCL refuses two ranks on one
+    device)."""
+    init_from_env(DEV, backend="gloo")
+    rank = dist.get_rank()
+    try:
+        set_fp32_numerics()
+        group = dist.group.WORLD
+        imgs, _ = phantom_batch(BATCH, SIZE, seed=6)
+        x = imgs[local_rows(BATCH, DP_WORLD, rank)].to(DEV)
+        base = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(1))
+        out = {}
+        for label in ("dp", "fsdp"):
+            state = flownet2_train_state(base)
+            if label == "fsdp":
+                shard_train_state(state, group)
+            step = make_train_step(state, group=group)
+            with deterministic_cudnn():
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                metrics = step(x)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = counts()
+            names = {p: n for n, p in state.model.named_parameters()}
+            shares = ({names[p]: (p.numel(), p.numel() * DP_WORLD)
+                       for p in state.shards.dims} if state.shards else {})
+            with (state.shards.gathered() if state.shards else contextlib.nullcontext()):
+                sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+            from_rank0 = 0.0
+            for v in sd.values():
+                v0 = v.clone()
+                dist.broadcast(v0, 0, group=group)
+                from_rank0 = max(from_rank0, float((v.double() - v0.double()).abs().max()))
+            out[label] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                          "launches": launches, "seconds": seconds, "shares": shares,
+                          "from_rank0": from_rank0}
+            print(f"rank {rank} {label}: launches {launches}, {seconds:.3f} s, metrics "
+                  f"{out[label]['metrics']}", flush=True)
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in sd.items()},
+                           os.path.join(folder, f"{label}.pt"))
+                if label == "dp":  # the summed gradients Adam was given
+                    torch.save({n: p.grad.detach().cpu()
+                                for n, p in state.model.named_parameters()},
+                               os.path.join(folder, "dp_grads.pt"))
+            del state, step, sd
+            torch.cuda.empty_cache()
+        work = os.path.join(folder, "cli")
+        written = []
+        save = checkpoint_module._save
+
+        def record(path, payload):
+            written.append(os.path.relpath(path, work))
+            save(path, payload)
+
+        checkpoint_module._save = record
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            state = cli_train.main(["--model", "flownet2", "--synthetic", "2",
+                                    "--image_size", str(SIZE), "--batch_size",
+                                    str(BATCH), "--epochs", "1", "--cp", "0", "--fsdp",
+                                    "--workdir", work, "--logdir",
+                                    os.path.join(work, "log")], device="cuda")
+        losses = [line for line in text.getvalue().splitlines() if "TRAIN done" in line]
+        out["cli"] = {"step": state.step, "written": written,
+                      "loss": float(losses[0].split("avg loss ")[1].split()[0])
+                      if losses else float("nan")}
+        with open(os.path.join(folder, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_path(train_dirs):
+    phase("8m. data parallel and --fsdp: (i) FlowNet2's DP train step over an NCCL "
+          "group of one on cuda:0, fp32 and bf16, at 256², batch 8, and the --fsdp "
+          "CLI; (ii) two ranks on the one card over gloo")
+    base = OpticalFlowReg("flownet2", generator=torch.Generator().manual_seed(1))
+    with torchrun_env(0, 1, free_port()):
+        init_from_env(DEV)  # NCCL, as under torchrun
+    try:
+        before, reference = dp_world_of_one(base, train_dirs)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    dp_two_ranks(base, before, reference)
+
+
 def step_medians_beside_ctypes():
     print("\n  train steps beside commit bf75122's (kernels called through "
           "torch.library ops now, ctypes inside autograd.Functions then):")
@@ -3422,6 +3876,9 @@ def breakdown(label, steps, args):
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA card found")
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(sys.argv[2])
+        return
     t_start = time.time()
     marks = []
 
@@ -3477,10 +3934,12 @@ def main():
     pretrained_and_native_paths(pair_dirs, train_dirs)
     trace_path(eval_steps["fp32"], imgs, segs)
     pairs.cleanup()
-    train_vols.cleanup()
     mark("A.6: remat, --pretrained, the native decoder, TensorBoard, trace")
     export_path(model)
     mark("A.8: the serving export")
+    dp_path(train_dirs)
+    train_vols.cleanup()
+    mark("A.7a-b: data parallel and --fsdp")
     vol_steps = {"affine": affine_step, "deform": deform_step}
     kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                       vol_steps, vols, vflow, velocity)

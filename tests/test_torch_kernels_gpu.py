@@ -877,3 +877,51 @@ def test_op_equals_its_launch_function(dev, name, kernel, dtype):
                 _bf16_close(a, b_, atol=1e-5)
         else:
             assert torch.equal(a, b_), kernel
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel train step over an NCCL group of one
+
+
+def test_dp_step_of_one_rank_equals_single_process_step(dev):
+    """FlowNetC's data-parallel train step (``make_train_step(group=)``)
+    over an NCCL group of one on the card, at 64², batch 4, fp32, against
+    the single-process step from the same weights on the same batch, cuDNN
+    deterministic: the all-reduces of one rank copy, so the metrics, the
+    weights and the running statistics are equal to the bit, and the step
+    launches the kernels the single-process step does."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpureg_torch.reg import OpticalFlowReg
+    from tpureg_torch.serving import deterministic_cudnn
+    from tpureg_torch.train import create_train_state, make_train_step
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    imgs = torch.rand(4, 64, 64, 2, generator=torch.Generator().manual_seed(7)).to(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        out = []
+        for group in (None, dist.group.WORLD):
+            model = OpticalFlowReg("flownetc", generator=torch.Generator().manual_seed(5))
+            state = create_train_state(model.to(dev))
+            step = make_train_step(state, group=group)
+            with deterministic_cudnn():
+                torch.cuda.synchronize()
+                before = {fn: fn.launches for _, _, fn in OPS}
+                metrics = step(imgs)
+                torch.cuda.synchronize()
+            launches = {fn: fn.launches - before[fn] for _, _, fn in OPS}
+            out.append((metrics, state.model.state_dict(), launches))
+    finally:
+        dist.destroy_process_group()
+    (m1, sd1, l1), (m2, sd2, l2) = out
+    assert l1 == l2 and l1[correlation_cuda] == 1 and l1[sample2d_cuda] > 0
+    for k in m1:
+        assert torch.equal(m1[k], m2[k]), k
+    for k in sd1:
+        assert torch.equal(sd1[k], sd2[k]), k

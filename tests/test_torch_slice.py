@@ -275,6 +275,17 @@ def test_port_source_has_no_jax_import(path):
                                "tpureg"), f"{path}: imports {name}"
 
 
+def test_no_jax_checks_cover_the_parallel_package():
+    """The checks above import and parse every module of
+    ``tpureg_torch/parallel/`` (process groups, tpureg's sharding rules,
+    FSDP); the rank program of the CPU tests' gloo runs, which imports the
+    port in processes of its own, imports no JAX either."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"tpureg_torch/parallel/__init__.py", "tpureg_torch/parallel/mesh.py",
+            "tpureg_torch/parallel/fsdp.py"} <= names
+    test_port_source_has_no_jax_import(ROOT / "tests" / "torch_parallel_worker.py")
+
+
 def test_every_root_script_of_the_port_is_named():
     """A root script that uses the port is a card-side script (no JAX) or
     the converter, and no card-side script names the converter."""

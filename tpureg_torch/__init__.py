@@ -18,6 +18,8 @@ volumetric training path (VoxelMorph3D and AffineNet3D):
 - ``train``: the eval and train steps, Adam, the schedule and checkpoints;
   ``compat``: the weight bridge from tpureg's flax trees, the torch
   checkpoint import, the Caffe reader and layer-ordered import;
+- ``parallel``: data-parallel training across processes with tpureg's
+  global-batch semantics, and tpureg's FSDP layout of a train state;
 - ``serving``: the head's eval forward exported with ``torch.export``;
 - ``data``, ``metrics``, ``cli``: Analyze data and the volume and slice
   pipelines, the numpy metric suite, the inference, training, comparator

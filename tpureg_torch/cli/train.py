@@ -16,18 +16,33 @@ epoch instead of OASIS. On OASIS the elastic synthesis runs inside the
 train step (``make_train_step(synth=...)``). Runs on the card unless
 ``device="cpu"`` is passed.
 
-Not ported: ``--fsdp`` (sharded training).
+``--fsdp`` (tpureg cli/train.py:251-270, :292-294) trains data-parallel over
+the default process group, with the parameters and Adam's moments sharded
+by tpureg's rule (``parallel.shard_train_state``): launched as ``torchrun
+--nproc_per_node N -m tpureg_torch.cli.train --fsdp ...`` (one process a
+card; ``parallel.init_from_env``), or as ``main(argv, device)`` inside an
+initialised group; with no group it runs on one device ("over 1 devices").
+As in tpureg the corpus is not split per process: every rank draws the
+same global batch and keeps its rows (``parallel.local_rows``), and the
+step's results are the global batch's; where a microbatch does not split
+over the ranks every rank keeps the whole batch and the gradients are
+averaged. The elastic synthesis stays outside the step. Rank 0 alone
+prints the meters and writes checkpoints, best weights and TensorBoard.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 from functools import partial
 
 import torch
+import torch.distributed as dist
 
 from ..data import random_pair_batch, synth_image_batch, volume2slices_datasets
+from ..parallel import init_from_env, local_rows, rank_and_world, shard_train_state
 from ..reg import OpticalFlowReg
 from ..train import (
     create_train_state,
@@ -46,10 +61,14 @@ PRINT_INTERVAL = 2
 TERMS = ("loss", "photo_loss", "corr_loss", "smooth_loss")
 
 
+def _quiet(*args, **kwargs):
+    pass
+
+
 def run_epoch(step_fn, loader, mode: str, n_batches_hint=None,
-              train: bool = True):
+              train: bool = True, log=print):
     """One pass over ``loader``; returns the average metrics (and ``_n``,
-    the number of batches averaged).
+    the number of batches averaged); ``log`` prints the meters.
 
     Metrics are read back lazily (at print intervals, only once the card has
     finished their step, and at the epoch's end), so that steps queue on the
@@ -76,7 +95,7 @@ def run_epoch(step_fn, loader, mode: str, n_batches_hint=None,
                         "before the divergence reaches the checkpoints "
                         "(lower the lr, check input scaling, or resume from "
                         "the last epoch)")
-                print(f"[{mode}] WARNING: non-finite loss {loss} — batch "
+                log(f"[{mode}] WARNING: non-finite loss {loss} — batch "
                       "excluded from epoch averages", flush=True)
                 continue
             for k, m in meters.items():
@@ -103,12 +122,12 @@ def run_epoch(step_fn, loader, mode: str, n_batches_hint=None,
                 f"corr {meters['corr_loss'].val:.4f}  "
                 f"photo {meters['photo_loss'].val:.4f}"
                 if meters["loss"].count else "loss (pending)")
-            print(f"[{mode} batch {i + 1:03d}{total}] "
+            log(f"[{mode} batch {i + 1:03d}{total}] "
                   f"time {timer.val:.3f}s ({timer.avg:.3f}s)  {stats}",
                   flush=True)
     flush()
     epoch_s = time.time() - epoch_t0
-    print(f"===> {mode} done in {epoch_s:.1f}s | avg loss "
+    log(f"===> {mode} done in {epoch_s:.1f}s | avg loss "
           f"{meters['loss'].avg:.4f} smooth {meters['smooth_loss'].avg:.4f} "
           f"corr {meters['corr_loss'].avg:.4f} photo "
           f"{meters['photo_loss'].avg:.4f}\n", flush=True)
@@ -168,12 +187,28 @@ def build_argparser():
                    help="StepLR period in steps (reference defines "
                         "StepLR(40, 0.8) but never steps it; 0 = constant)")
     p.add_argument("--lr_gamma", default=0.8, type=float)
+    p.add_argument("--fsdp", action="store_true",
+                   help="data-parallel over the process group (torchrun), "
+                        "params and Adam's moments sharded by tpureg's rule")
     return p
+
+
+def _rows(batches, rows):
+    """Each batch's ``image_c`` cut to ``rows``."""
+    for b in batches:
+        yield {"image_c": b["image_c"].index_select(0, rows)}
 
 
 def main(argv=None, device=None):
     args = build_argparser().parse_args(argv)
     dev = resolve_device(device)
+    group = None
+    if args.fsdp:
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            dev = init_from_env(dev)
+        group = dist.group.WORLD if dist.is_initialized() else None
+    rank, world = rank_and_world(group)
+    log = print if rank == 0 else _quiet
     seed_everything(args.seed)
     lr = step_decay_schedule(args.lrIni, step_size=args.lr_step,
                              gamma=args.lr_gamma, enabled=args.lr_step > 0)
@@ -188,7 +223,7 @@ def main(argv=None, device=None):
     if args.cp:
         restored = restore_training_state(args.workdir, predictor_name, state)
         if restored is not None:
-            print("----------loading checkpoint state----------", flush=True)
+            log("----------loading checkpoint state----------", flush=True)
             state, starting_epoch, best_loss = restored
 
     if args.pretrained:
@@ -201,17 +236,35 @@ def main(argv=None, device=None):
                    if args.surgery else {})
         report = import_torch_state_dict(sd, model, surgery=surgery,
                                          prefix="predictor.")
-        print(f"imported {len(report['loaded'])} tensors "
-              f"({len(report['missing'])} unmatched, "
-              f"{len(report['shape_mismatch'])} shape-mismatched)", flush=True)
+        log(f"imported {len(report['loaded'])} tensors "
+            f"({len(report['missing'])} unmatched, "
+            f"{len(report['shape_mismatch'])} shape-mismatched)", flush=True)
+
+    rows = eval_rows = None
+    if args.fsdp:
+        shard_train_state(state, group)
+        log(f"FSDP: params/opt-state sharded over {world} devices", flush=True)
+        if args.batch_size % world:
+            log(f"FSDP: batch {args.batch_size} not divisible by {world} "
+                "devices — batches stay replicated", flush=True)
+        elif args.batch_size % (world * args.accum_steps):
+            log(f"FSDP: microbatch {args.batch_size // args.accum_steps} not "
+                f"divisible by {world} devices — batches stay replicated",
+                flush=True)
+        else:
+            rows = local_rows(args.batch_size, world, rank,
+                              args.accum_steps).to(dev)
+            eval_rows = local_rows(args.batch_size, world, rank).to(dev)
+    parallel = dict(group=group, replicated=rows is None) if args.fsdp else {}
 
     compute_dtype = torch.bfloat16 if args.precision == "bf16" else None
     loss_kwargs = default_loss_kwargs(args.model)
     train_step = make_train_step(state, loss_kwargs=loss_kwargs,
                                  compute_dtype=compute_dtype,
-                                 accum_steps=args.accum_steps)
+                                 accum_steps=args.accum_steps, **parallel)
     eval_step = make_eval_step(model, loss_kwargs=loss_kwargs,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, shards=state.shards,
+                               **parallel)
 
     oasis, fused_synth = None, False
     if not args.synthetic:
@@ -219,8 +272,10 @@ def main(argv=None, device=None):
             args.img_dir, args.seg_dir, args.batch_size, dev, seed=args.seed,
             limit=args.limit_volumes, shuffle_train=args.shuffle,
             # the training loop never reads seg_c (reference train.py:41-44)
-            with_seg=False, magnitude=tuple(args.aug_magnitude))
-        if oasis[0].supports_fused_step:
+            with_seg=False, magnitude=tuple(args.aug_magnitude),
+            # tpureg's CLI never splits its corpus per process
+            process_index=0, process_count=1)
+        if oasis[0].supports_fused_step and not args.fsdp:
             # the elastic synthesis runs inside the train step
             train_step = make_train_step(
                 state, loss_kwargs=loss_kwargs, compute_dtype=compute_dtype,
@@ -235,39 +290,50 @@ def main(argv=None, device=None):
             mk = lambda split, n: synthetic_loader(
                 derive_seed(args.seed, epoch_idx, split), n, args.batch_size,
                 args.image_size, dev)
-            return (mk(0, args.synthetic), mk(1, n_val), mk(2, n_val),
-                    args.synthetic * args.batch_size)
-        train_ds, val_ds, test_ds, train_len, _ = oasis
-        train_ds.set_epoch(epoch_idx + 1)
-        train_iter = (({"image_c": s} for s in train_ds.batch_specs())
-                      if fused_synth else iter(train_ds))
-        return train_iter, iter(val_ds), iter(test_ds), train_len
+            loaders = (mk(0, args.synthetic), mk(1, n_val), mk(2, n_val))
+            train_len = args.synthetic * args.batch_size
+        else:
+            train_ds, val_ds, test_ds, train_len, _ = oasis
+            train_ds.set_epoch(epoch_idx + 1)
+            train_iter = (({"image_c": s} for s in train_ds.batch_specs())
+                          if fused_synth else iter(train_ds))
+            loaders = (train_iter, iter(val_ds), iter(test_ds))
+        if rows is not None:  # every rank drew the global batch: keep its rows
+            loaders = tuple(_rows(loader, r) for loader, r
+                            in zip(loaders, (rows, eval_rows, eval_rows)))
+        return (*loaders, train_len)
 
-    writer = MetricWriter(args.logdir, flush_secs=30)
+    writer = MetricWriter(args.logdir, flush_secs=30) if rank == 0 else None
     for e in range(starting_epoch, args.epochs):
-        print(f"=================\n EPOCH {e + 1}/{args.epochs}\n"
-              f"=================", flush=True)
+        log(f"=================\n EPOCH {e + 1}/{args.epochs}\n"
+            f"=================", flush=True)
         train_loader, val_loader, test_loader, train_len = make_loaders(e)
-        # the rate scheduled at the current step, not the initial one
-        writer.add_scalar("lr", state.lr(), e + 1)
+        if writer is not None:
+            # the rate scheduled at the current step, not the initial one
+            writer.add_scalar("lr", state.lr(), e + 1)
         train_m = run_epoch(train_step, train_loader, "TRAIN",
-                            train_len // args.batch_size)
+                            train_len // args.batch_size, log=log)
         save_training_state(args.workdir, predictor_name, state, e, best_loss)
 
-        val_m = run_epoch(eval_step, val_loader, "VAL", train=False)
+        val_m = run_epoch(eval_step, val_loader, "VAL", train=False, log=log)
         if val_m["_n"] and val_m["loss"] < best_loss:
-            print("---------saving new best weights----------", flush=True)
+            log("---------saving new best weights----------", flush=True)
             best_loss = val_m["loss"]
-            save_best_weights(
-                args.workdir, predictor_name, model,
-                {f"{k}_val": v for k, v in val_m.items() if k != "_n"})
+            with (state.shards.gathered() if state.shards is not None
+                  else contextlib.nullcontext()):
+                if rank == 0:
+                    save_best_weights(
+                        args.workdir, predictor_name, model,
+                        {f"{k}_val": v for k, v in val_m.items() if k != "_n"})
 
-        test_m = run_epoch(eval_step, test_loader, "TEST", train=False)
-        for tag in TERMS:
-            writer.add_scalars(tag, {"train": train_m[tag], "val": val_m[tag],
-                                     "test": test_m[tag]}, e + 1)
-    writer.close()
-    print("---------Train complete---------", flush=True)
+        test_m = run_epoch(eval_step, test_loader, "TEST", train=False, log=log)
+        if writer is not None:
+            for tag in TERMS:
+                writer.add_scalars(tag, {"train": train_m[tag], "val": val_m[tag],
+                                         "test": test_m[tag]}, e + 1)
+    if writer is not None:
+        writer.close()
+    log("---------Train complete---------", flush=True)
     return state
 
 

@@ -44,6 +44,7 @@ import torch
 from ..models.affine3d import affine_warp3d
 from ..ops.elastic import rand_elastic_2d
 from ..ops.resize import resize2d, resize_nd
+from ..parallel.mesh import rank_and_world
 from ..utils.seeding import derive_seed, seed_everything
 from .analyze import read_analyze
 
@@ -270,20 +271,42 @@ def volume2slices_datasets(data_dir: str, seg_dir: str, batch_size: int,
                            test_frac: float = 0.1, seed: int = 6,
                            limit: Optional[int] = 10,
                            shuffle_train: bool = False, with_seg: bool = True,
-                           magnitude: Tuple[float, float] = (0.0, 0.5)):
+                           magnitude: Tuple[float, float] = (0.0, 0.5),
+                           process_index: Optional[int] = None,
+                           process_count: Optional[int] = None):
     """(train, val, test, train_len, val_len), tpureg's constructor
     (dataset.py:30-97) on ``device``. ``magnitude`` is the elastic
     control-point offset range in pixels (the reference hard-codes (0, 0.5));
     ``with_seg=False`` skips the segmentations, which the training loop never
-    reads. Multi-host sharding of the training volumes is not ported."""
+    reads.
+
+    The per-process input split of tpureg (pipeline.py:386-408): with
+    ``process_count`` > 1 the training volumes are split round-robin
+    (``train_v[pi::pc]``) and truncated to ``max(1, len(train_v) // pc)``,
+    so every process takes the same number of steps an epoch; with fewer
+    volumes than processes each repeats ``train_v[pi % len(train_v)]``; the
+    index is folded into the training seed, so the processes draw distinct
+    deformations. Val and test are not split. ``process_index`` and
+    ``process_count`` default to the default process group's rank and
+    size, 0 and 1 without one."""
     train_v, val_v, test_v = split_volumes(list_pairs(data_dir, seg_dir),
                                            val_frac, test_frac, seed, limit)
-    mk = lambda vols, split, shuf: SliceDataset(
+    rank, world = rank_and_world()
+    pi = rank if process_index is None else process_index
+    pc = world if process_count is None else process_count
+    train_seed = (seed, 0)
+    if pc > 1:
+        if train_v:
+            common = max(1, len(train_v) // pc)
+            shard = train_v[pi::pc] or [train_v[pi % len(train_v)]]
+            train_v = shard[:common]
+        train_seed = (seed, 0, pi)
+    mk = lambda vols, split_seed, shuf: SliceDataset(
         VolumeSliceSource(vols, device, with_seg=with_seg), batch_size,
-        (seed, split), magnitude, 256, shuf)
-    train = mk(train_v, 0, shuffle_train)
-    val = mk(val_v, 1, False)
-    test = mk(test_v, 2, False)
+        split_seed, magnitude, 256, shuf)
+    train = mk(train_v, train_seed, shuffle_train)
+    val = mk(val_v, (seed, 1), False)
+    test = mk(test_v, (seed, 2), False)
     return train, val, test, len(train), len(val)
 
 

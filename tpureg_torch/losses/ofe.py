@@ -15,10 +15,21 @@
 
 NCHW: images [B, 1, H, W], flows [B, 2, h, w].
 
+Under a process group whose ranks each hold their rows of one global batch
+(``OFEloss(..., group=)``, the data-parallel train step's), each term is the
+rank's share of the global batch's, as tpureg's loss over a batch sharded on
+``'data'`` is one sum over the global batch (ofe.py:50-93 there): the
+photometric and smoothness terms are the rank's sums over the global B; the
+correlation term is not a per-rank quantity, so its means, sums, zero guard
+and 1/B come from all-reduced quantities (``parallel.all_sum``) and each
+rank takes 1/W of the global value. The shares add up over the ranks to
+tpureg's terms, and the gradients of the ranks' totals, summed over the
+ranks, are the global batch's.
+
 The volumetric losses (ofe.py:61-63, :103-105, :156-207 there) take NCDHW
 volumes [B, 1, D, H, W] and flows [B, 3, D, H, W] at one scale, with no
 resize: ``DEFloss3D`` for the deformable model, ``Affloss`` for the affine
-stage.
+stage; they have no process group, since no data-parallel step runs them.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ops.resize import resize2d
+from ..parallel.mesh import all_sum, rank_and_world, spans_ranks
 
 __all__ = ["charbonnier", "photometric_loss", "photometric_loss_3d",
            "smoothness_loss", "smoothness_loss_3d", "correlation_loss",
@@ -58,29 +70,44 @@ def smoothness_loss(flow):
     return torch.sum(s) / b
 
 
-def _pearson_one_minus(fixed, warped, batch):
+def _pearson_one_minus(fixed, warped, batch, group=None):
     """1 - global Pearson with the reference's 1/B factor and zero guard.
     The guard also sits inside the roots: tpureg's ``where(degenerate, 1,
     sqrt(sx)·sqrt(sy))`` passes 0·∞ = NaN back from the branch it does not
     take, so a constant warped scale (a 1×1 flow) gave NaN gradients there
-    (ROADMAP C9); here the gradient is 0, and elsewhere unchanged."""
-    vx = warped - torch.mean(warped)
-    vy = fixed - torch.mean(fixed)
-    sx = torch.sum(torch.square(vx))
-    sy = torch.sum(torch.square(vy))
+    (ROADMAP C9); here the gradient is 0, and elsewhere unchanged. Under a
+    ``group`` of several ranks the means, the three sums and ``batch`` are
+    the global batch's (all-reduced): every rank gets the global value."""
+    if spans_ranks(group):
+        sums = all_sum(torch.stack([warped.sum(), fixed.sum(),
+                                    warped.new_tensor(warped.numel()),
+                                    warped.new_tensor(batch)]), group)
+        vx = warped - sums[0] / sums[2]
+        vy = fixed - sums[1] / sums[2]
+        batch = sums[3]
+        sx, sy, sxy = all_sum(torch.stack([torch.sum(torch.square(vx)),
+                                           torch.sum(torch.square(vy)),
+                                           torch.sum(vx * vy)]), group)
+    else:
+        vx = warped - torch.mean(warped)
+        vy = fixed - torch.mean(fixed)
+        sx = torch.sum(torch.square(vx))
+        sy = torch.sum(torch.square(vy))
+        sxy = torch.sum(vx * vy)
     degenerate = (sx == 0.0) | (sy == 0.0)
     one = torch.ones_like(sx)
     denom = (torch.sqrt(torch.where(degenerate, one, sx))
              * torch.sqrt(torch.where(degenerate, one, sy)))
-    corr = torch.where(degenerate, one, torch.sum(vx * vy) / denom / batch)
+    corr = torch.where(degenerate, one, sxy / denom / batch)
     return 1.0 - corr
 
 
-def correlation_loss(fixed, warped):
-    """[B,1,H,W] fixed vs [B,1,h,w] warped (reference loss.py:52-64)."""
+def correlation_loss(fixed, warped, group=None):
+    """[B,1,H,W] fixed vs [B,1,h,w] warped (reference loss.py:52-64); under
+    a ``group`` of several ranks, the global batch's value."""
     h, w = warped.shape[2], warped.shape[3]
     fixed = resize2d(fixed, (h, w), "bilinear", align_corners=False)
-    return _pearson_one_minus(fixed, warped, warped.shape[0])
+    return _pearson_one_minus(fixed, warped, warped.shape[0], group)
 
 
 def OFEloss(
@@ -91,6 +118,7 @@ def OFEloss(
     gamma: float = 100.0,
     zeta: float = 100.0,
     weight_order: str = "ascending",
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Multi-scale OFE loss → (photo, corr, smooth, total).
 
@@ -99,10 +127,20 @@ def OFEloss(
     "ascending" (the reference's) or "descending", which gives the first
     (finest, or RAFT's most refined) entry the largest weight; the default
     loss of every model, RAFT's included, is ascending.
+
+    ``group``: None, or a process group whose ranks each hold their rows of
+    one global batch; where it holds more than one process, each term is
+    this rank's share of the global batch's (the module docstring).
     """
     if weight_order not in ("ascending", "descending"):
         raise ValueError(f"weight_order must be 'ascending'|'descending', "
                          f"got {weight_order!r}")
+    # this rank's share of the global batch's terms: its rows over the
+    # global B for the sums over rows, 1/W of the (global) Pearson
+    world, share = 1, 1.0
+    if spans_ranks(group):
+        world = rank_and_world(group)[1]
+        share = fixed.shape[0] / all_sum(fixed.new_tensor(fixed.shape[0]), group)
     n = len(flows)
     weights = 0.05 * torch.arange(1, n + 1, dtype=torch.float32,
                                   device=fixed.device)
@@ -113,11 +151,11 @@ def OFEloss(
     s_loss = 0.0
     for i in range(n):
         p_loss = p_loss + weights[i] * photometric_loss(fixed, warpeds[i])
-        c_loss = c_loss + weights[i] * correlation_loss(fixed, warpeds[i])
+        c_loss = c_loss + weights[i] * correlation_loss(fixed, warpeds[i], group)
         s_loss = s_loss + weights[i] * smoothness_loss(flows[i])
-    p_loss = gamma / n * p_loss
-    c_loss = zeta / n * c_loss
-    s_loss = lamb_da / n * s_loss
+    p_loss = gamma / n * p_loss * share
+    c_loss = zeta / (n * world) * c_loss
+    s_loss = lamb_da / n * s_loss * share
     return p_loss, c_loss, s_loss, p_loss + s_loss + c_loss
 
 

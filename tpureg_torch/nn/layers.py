@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_sum, spans_ranks
+
 __all__ = [
     "ConvBlock",
     "IConvBlock",
@@ -196,11 +198,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     of flownet2's i_conv blocks. Evaluation normalises by the running
     statistics. The output has the input's dtype; the scale, shift and
     statistics stay fp32.
+
+    ``process_group``: None, or a group of processes that each hold their
+    rows of one global batch (the data-parallel train step sets it for its
+    duration; ``parallel/mesh.py``). Where it holds more than one process,
+    training normalises by the global batch's mean and biased variance, as
+    flax's BatchNorm does over a batch sharded on ``'data'``: two passes,
+    the count and the sums all-reduced, then the centred sums of squares,
+    in fp32 (fp64 for fp64 input), through ``all_sum`` so that gradients
+    flow through both statistics; the running statistics are updated from
+    the global ones, so every rank's buffers stay equal. (A subclass of its
+    own: ``SyncBatchNorm.convert_sync_batchnorm`` would drop flax's
+    running-statistics rule.)
     """
+
+    process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if spans_ranks(self.process_group):
+            return self._global_forward(x)
         if x.numel() == x.shape[1]:
             # one value per channel, which F.batch_norm refuses: flax's
             # normalisation gives the shift (x - mean = 0)
@@ -218,6 +236,25 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(keep).add_(var * self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x):
+        """Training over the global batch of ``process_group``'s ranks."""
+        group = self.process_group
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.new_tensor([x.numel() / x.shape[1]])
+        stats = all_sum(torch.cat([xf.sum(dim=(0, 2, 3)), count]), group)
+        n = stats[-1]
+        mean = stats[:-1] / n
+        centred = xf - mean[:, None, None]
+        var = all_sum(torch.square(centred).sum(dim=(0, 2, 3)), group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = centred * scale[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean.detach() * self.momentum)
+            self.running_var.mul_(keep).add_(var.detach() * self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def batch_norm(channels: int) -> BatchNorm2d:

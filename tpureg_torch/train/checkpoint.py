@@ -9,10 +9,17 @@
   weights and their metrics whenever validation improves,
   ``{"state_dict": model.state_dict(), "metrics": {...}}``; inference loads
   this file.
+
+Under FSDP (``TrainState.shards``) ``save_training_state`` gathers the full
+parameters and moments on every rank and rank 0 alone writes them, in the
+single-process format, and ``restore_training_state`` loads a file into the
+full tensors and keeps each rank's slices: a file written under FSDP
+restores without it, and the other way round.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Optional, Tuple
 
@@ -57,13 +64,23 @@ def load_best_weights(root: str, predictor_name: str, model) -> Dict[str, float]
     return payload["metrics"]
 
 
+def _whole(state):
+    """The full parameters and moments of ``state`` for the duration (every
+    rank gathers under FSDP)."""
+    if state.shards is None:
+        return contextlib.nullcontext()
+    return state.shards.gathered(state.optimizer)
+
+
 def save_training_state(root: str, predictor_name: str, state, epoch: int,
                         best_loss: float) -> str:
     path = training_state_path(root, predictor_name)
-    _save(path, {"epoch": epoch, "best_loss": float(best_loss),
-                 "model": state.model.state_dict(),
-                 "optimizer": state.optimizer.state_dict(),
-                 "step": int(state.step)})
+    with _whole(state):
+        if state.shards is None or state.shards.rank == 0:
+            _save(path, {"epoch": epoch, "best_loss": float(best_loss),
+                         "model": state.model.state_dict(),
+                         "optimizer": state.optimizer.state_dict(),
+                         "step": int(state.step)})
     return path
 
 
@@ -77,7 +94,8 @@ def restore_training_state(root: str, predictor_name: str, state
     if not os.path.exists(path):
         return None
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    with _whole(state):
+        state.model.load_state_dict(payload["model"], strict=True)
+        state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"]) + 1, float(payload["best_loss"])

@@ -11,7 +11,7 @@ there (state.py:95-101).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
@@ -24,12 +24,16 @@ Schedule = Union[float, Callable[[int], float]]
 @dataclass
 class TrainState:
     """``model`` holds the parameters and the BatchNorm statistics,
-    ``optimizer`` Adam's moments; ``step`` counts the updates taken."""
+    ``optimizer`` Adam's moments; ``step`` counts the updates taken.
+    ``shards``: None, or the FSDP layout (``parallel.ShardedParams``) after
+    ``parallel.shard_train_state``: the sharded parameters and their moments
+    are then this rank's slices between steps."""
 
     model: nn.Module
     optimizer: torch.optim.Adam
     learning_rate: Schedule
     step: int = 0
+    shards: Optional[object] = None
 
     def lr(self, step: int = None) -> float:
         """The learning rate the schedule gives at ``step`` (default: the

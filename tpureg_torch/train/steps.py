@@ -29,6 +29,27 @@ saves is the grid warp's.
 BatchNorm's recomputed forward would update its running statistics a
 second time; the step puts back the statistics of the first forward.
 
+``make_train_step(group=...)`` and ``make_eval_step(group=...)`` are the
+data-parallel steps: one process a card, each passing its rows of the
+global batch (``parallel.local_rows``: its part of every microbatch, in
+tpureg's microbatch order), and the result is the global batch's, as
+tpureg's step over a batch sharded on ``'data'`` is one program over the
+global batch. The rank's loss is its share of the global loss
+(``OFEloss(group=)``: its photometric and smoothness sums over the global
+B, 1/W of the global Pearson); BatchNorm normalises by the global batch's
+statistics through a differentiable all-reduce (its ``process_group``, set
+for the step's duration); the parameter gradients are summed over the
+ranks, so their sum is the gradient of tpureg's loss; the metrics are
+all-reduced, so every rank returns the global values. Every rank issues
+the same collectives in the same order, in the forward, the backward and a
+``remat`` recompute. With ``replicated=True`` every rank passes the whole
+batch instead (the training CLI's ``--fsdp`` where the batch does not split
+over the ranks): everything is computed as in one process and the
+gradients and metrics are averaged over the ranks. Under FSDP
+(``TrainState.shards``) the steps gather the full parameters for their
+duration and Adam updates each rank's slices. Without a group nothing
+crosses processes and every result is the single-process step's.
+
 ``make_flow_supervised_step`` is the synthetic-flow pretraining step
 (tpureg steps.py:214-343): mean endpoint error of every flow the head
 returns against ``stn_inverse_target`` of the displacement that synthesised
@@ -42,10 +63,12 @@ TF32 off, one Adam update each.
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
@@ -55,7 +78,9 @@ from torch.utils.checkpoint import (
 )
 
 from ..losses import Affloss, DEFloss3D, OFEloss
+from ..nn import BatchNorm2d
 from ..ops.warp import base_grid
+from ..parallel.mesh import rank_and_world
 
 __all__ = ["default_loss_kwargs", "loss_from_outputs", "cast_params",
            "make_train_step", "make_eval_step", "set_fp32_numerics",
@@ -73,9 +98,10 @@ def default_loss_kwargs(model_name: str) -> Optional[dict]:
     return None
 
 
-def loss_from_outputs(outputs, imgs, loss_kwargs):
+def loss_from_outputs(outputs, imgs, loss_kwargs, group=None):
     """OFE loss of NCHW head ``outputs`` against the fixed channel of NCHW
-    ``imgs``; ``num_scales`` keeps only the finest k flows."""
+    ``imgs``; ``num_scales`` keeps only the finest k flows; ``group``: the
+    data-parallel group whose global batch the loss is (``OFEloss``)."""
     flows, warped_imgs = outputs[0], outputs[1]
     loss_kwargs = dict(loss_kwargs or {})
     num_scales = loss_kwargs.pop("num_scales", None)
@@ -85,7 +111,7 @@ def loss_from_outputs(outputs, imgs, loss_kwargs):
     flows = [f.float() for f in flows]
     warped_imgs = [w.float() for w in warped_imgs]
     fixed = imgs[:, 0:1].float()
-    return OFEloss(flows, warped_imgs, fixed, **loss_kwargs)
+    return OFEloss(flows, warped_imgs, fixed, group=group, **loss_kwargs)
 
 
 def cast_params(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -152,17 +178,69 @@ def _batchnorm_stats(model):
             for b in m.buffers()]
 
 
-def _loss_terms(model, imgs, segs, loss_kwargs, compute_dtype, remat=None):
+def _loss_terms(model, imgs, segs, loss_kwargs, compute_dtype, remat=None,
+                group=None):
     outputs = _forward(model, imgs, segs, compute_dtype, remat)
     flows, warped = outputs[0], outputs[1]
     p, c, s, total = loss_from_outputs(
         (tuple(_nchw(f) for f in flows), tuple(_nchw(w) for w in warped)),
-        _nchw(imgs), loss_kwargs)
+        _nchw(imgs), loss_kwargs, group)
     return outputs, dict(zip(_TERMS, (total, p, c, s)))
 
 
+class _DataParallel:
+    """What a step does across the ranks of ``group``: None for one
+    process; ``replicated`` when every rank holds the whole batch."""
+
+    def __init__(self, group, replicated: bool, shards=None):
+        if shards is not None and group is None:
+            group = shards.group
+        self.group, self.replicated, self.shards = group, replicated, shards
+        self.world = 1 if group is None else rank_and_world(group)[1]
+        # the group the loss and BatchNorm reduce over
+        self.batch_group = None if replicated else group
+
+    def gathered(self):
+        return (contextlib.nullcontext() if self.shards is None
+                else self.shards.gathered())
+
+    @contextlib.contextmanager
+    def global_batchnorm(self, model):
+        """``model``'s BatchNorm over the global batch for the duration."""
+        bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+        for m in bns:
+            m.process_group = self.batch_group
+        try:
+            yield
+        finally:
+            for m in bns:
+                m.process_group = None
+
+    def _reduce(self, tensors):
+        """Sum (average when replicated) ``tensors`` over the ranks, in one
+        all-reduce of their concatenation."""
+        if self.group is None:
+            return tensors
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self.group)
+        if self.replicated:
+            flat.div_(self.world)
+        return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]),
+                                             tensors)]
+
+    def metrics(self, terms):
+        return self._reduce([terms])[0]
+
+    def gradients(self, params, grads):
+        grads = self._reduce(grads)
+        if self.shards is not None:
+            grads = [self.shards.shard_grad(p, g) for p, g in zip(params, grads)]
+        return grads
+
+
 def make_eval_step(model, loss_kwargs: Optional[dict] = None,
-                   compute_dtype: Optional[torch.dtype] = None):
+                   compute_dtype: Optional[torch.dtype] = None, group=None,
+                   replicated: bool = False, shards=None):
     """``eval_step(imgs, segs=None) -> (outputs, metrics)`` for an
     ``OpticalFlowReg``.
 
@@ -171,17 +249,32 @@ def make_eval_step(model, loss_kwargs: Optional[dict] = None,
     0-d fp32 tensors ``loss``, ``photo_loss``, ``corr_loss``,
     ``smooth_loss``. Each call puts the model in eval mode and, under
     ``compute_dtype``, casts the model's current parameters.
+
+    ``group``, ``replicated``: data parallelism (the module docstring): the
+    outputs are the rank's rows, the metrics the global batch's, equal on
+    every rank, so a best-weight decision is the same everywhere.
+    ``shards``: the train state's FSDP layout, gathered for each call.
     """
     loss_kwargs = loss_kwargs or {}
     if compute_dtype is None:
         set_fp32_numerics()
+    dp = _DataParallel(group, replicated, shards)
 
     @torch.inference_mode()
-    def eval_step(imgs, segs=None):
+    def step(imgs, segs):
         model.eval()
         outputs, metrics = _loss_terms(model, imgs, segs, loss_kwargs,
-                                       compute_dtype)
+                                       compute_dtype, group=dp.batch_group)
+        if dp.group is not None:
+            terms = dp.metrics(torch.stack([metrics[k] for k in _TERMS]))
+            metrics = {k: terms[i] for i, k in enumerate(_TERMS)}
         return outputs, metrics
+
+    def eval_step(imgs, segs=None):
+        # the gather stays outside inference mode: the slices kept on exit
+        # are the parameters Adam updates in place
+        with dp.gathered():
+            return step(imgs, segs)
 
     return eval_step
 
@@ -189,7 +282,8 @@ def make_eval_step(model, loss_kwargs: Optional[dict] = None,
 def make_train_step(state, loss_kwargs: Optional[dict] = None,
                     compute_dtype: Optional[torch.dtype] = None,
                     remat: Optional[str] = None, accum_steps: int = 1,
-                    synth: Optional[Callable] = None):
+                    synth: Optional[Callable] = None, group=None,
+                    replicated: bool = False):
     """``train_step(imgs) -> metrics`` for a ``TrainState``
     (``train/state.py``): forward in train mode, multi-scale loss, gradients,
     one Adam update of the state's optimizer at the scheduled learning rate.
@@ -207,6 +301,12 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
 
     ``remat``: ``None``, ``"full"`` or ``"dots"`` (the module docstring);
     the metrics, the update and the running statistics are the base step's.
+
+    ``group``: None, or the process group of data parallelism (the module
+    docstring): each rank passes its rows of the global batch (with
+    ``synth``, the spec of its rows) and the step takes the global batch's
+    update; ``replicated=True``: each rank passes the whole batch. A sharded
+    state (``state.shards``) implies its group.
     """
     loss_kwargs = loss_kwargs or {}
     if remat not in (None, "full", "dots"):
@@ -217,6 +317,7 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
         set_fp32_numerics()
     model = state.model
     params = [p for p in model.parameters() if p.requires_grad]
+    dp = _DataParallel(group, replicated, state.shards)
 
     def train_step(imgs):
         if synth is not None:
@@ -226,28 +327,30 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
             raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
         model.train()
         grads, sums = None, None
-        for mb in imgs.reshape(accum_steps, b // accum_steps, *imgs.shape[1:]):
-            with torch.enable_grad():
-                _, metrics = _loss_terms(model, mb, None, loss_kwargs,
-                                         compute_dtype, remat)
-                stats = _batchnorm_stats(model) if remat else ()
-                # a parameter the forward never reads (PWC's deconv0) gets
-                # a zero gradient, as tpureg's does
-                g = torch.autograd.grad(metrics["loss"], params,
-                                        materialize_grads=True)
-            for buf, first in stats:  # undo the recomputed forward's update
-                buf.copy_(first)
-            terms = torch.stack([metrics[k].detach() for k in _TERMS])
-            if grads is None:
-                grads, sums = list(g), terms
-            else:
-                for acc, gi in zip(grads, g):
-                    acc.add_(gi)
-                sums = sums + terms
+        with dp.gathered(), dp.global_batchnorm(model):
+            for mb in imgs.reshape(accum_steps, b // accum_steps, *imgs.shape[1:]):
+                with torch.enable_grad():
+                    _, metrics = _loss_terms(model, mb, None, loss_kwargs,
+                                             compute_dtype, remat, dp.batch_group)
+                    stats = _batchnorm_stats(model) if remat else ()
+                    # a parameter the forward never reads (PWC's deconv0)
+                    # gets a zero gradient, as tpureg's does
+                    g = torch.autograd.grad(metrics["loss"], params,
+                                            materialize_grads=True)
+                for buf, first in stats:  # undo the recomputed forward's update
+                    buf.copy_(first)
+                terms = torch.stack([metrics[k].detach() for k in _TERMS])
+                if grads is None:
+                    grads, sums = list(g), terms
+                else:
+                    for acc, gi in zip(grads, g):
+                        acc.add_(gi)
+                    sums = sums + terms
+            grads = dp.gradients(params, grads)
         for p, g in zip(params, grads):
             p.grad = g if accum_steps == 1 else g.div_(accum_steps)
         state.apply_gradients()
-        means = sums / accum_steps
+        means = dp.metrics(sums) / accum_steps
         return {k: means[i] for i, k in enumerate(_TERMS)}
 
     return train_step
