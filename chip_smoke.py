@@ -163,6 +163,27 @@
    the single-process step is to itself), each sharded parameter halved;
    the ``--fsdp`` CLI over the two ranks on two synthetic batches, rank 0
    alone writing;
+8n. ``--spatial_shards`` (ROADMAP A.7c): (i) two ranks of this script
+   (``--sp-rank``) on cuda:0 over gloo, joined through ``init_from_env``,
+   as a ('data', 'spatial') grid of 1 x 2 (``parallel.make_grid``), each
+   rank holding its slab of the volume's H: phase 8c's deform step and
+   phase 8b's affine step at 176 x 256 x 256, batch 2, fp32 (TF32 off,
+   cuDNN deterministic) on phase 8b's batch, against the single-process
+   step from the same weights on the same card: the metrics within 1e-4
+   relative; the forward's output (the deform flow gathered over H, the
+   affine θ) within twice the single-process step's own spread under a
+   change of rounding (cuDNN's default algorithms; the batch's halves
+   swapped), at least 1e-5 of its scale; the gradients summed over the
+   ranks within twice that spread in relative L2 (at least 1e-5) and 1 ±
+   0.25 in their projection on the single-process gradient; the update
+   within twice the spread; each rank's launches per step (deform K6a 8,
+   K6b 8, K6c 7; affine K6a 1, K6b 1) on two steps; each step's time and
+   the bytes each rank reduced through ``all_sum`` (single-card gloo
+   times, no multi-GPU claim); (ii) the 3-D CLI with ``--spatial_shards 2
+   --synthetic 1`` for one epoch, both stages, over the same two ranks:
+   each rank's step and launches, rank 0 alone printing and making the
+   TensorBoard writer. ``python3 chip_smoke.py --phase 8n`` runs phases 1,
+   2 and 8n alone and prints no result;
 9. timings with CUDA events: each kernel and its plain version, the
    library yardsticks (``grid_sample`` for K3 and K6a,
    ``grid_sampler_2d_backward`` for K4 (d/dgrid) and K5 (d/dinput),
@@ -257,7 +278,8 @@ from tpureg_torch.ops.warp import (
     warp2d,
 )
 from tpureg_torch.nn import BatchNorm2d
-from tpureg_torch.parallel import init_from_env, local_rows, shard_train_state
+from tpureg_torch.parallel import (all_sum, init_from_env, local_rows, make_grid,
+                                   shard_train_state)
 from tpureg_torch.reg import OpticalFlowReg
 from tpureg_torch.serving import (compare_outputs, deterministic_cudnn, export_registration,
                                   load_artifact, save_artifact)
@@ -275,6 +297,7 @@ from tpureg_torch.train import (
 )
 from tpureg_torch.train import checkpoint as checkpoint_module
 from tpureg_torch.utils import trace
+from tpureg_torch.utils import tb as tb_module
 from torch_quality_phantom import make_pairs as phantom_pairs
 
 DEV = torch.device("cuda")
@@ -2902,6 +2925,261 @@ def dp_path(train_dirs):
     dp_two_ranks(base, before, reference)
 
 
+# ---------------------------------------------------------------------------
+# phase 8n: --spatial_shards, two ranks on cuda:0 over gloo
+
+SP_WORLD = 2                       # a grid of data 1 x spatial 2
+SP_TIMEOUT = 600
+SP_STEPS = {"deform": make_deform3d_train_step, "affine": make_affine_train_step}
+# per rank and step, as one process's: each rank runs every composition and
+# the final warp on its slab of positions (the deform step), and the affine
+# warp on its slab (the synthesis, one K6a a batch, runs before the window)
+SP_LAUNCHES = {"deform": DEFORM_LAUNCHES,
+               "affine": launches_of(warp3d=1, warp3d_dpos=1)}
+
+
+def spatial_models():
+    """Phase 8c's VoxelMorph3D (velocity head scaled by 1e3) and phase 8b's
+    AffineNet3D, from their seeds, on the host."""
+    deform = VoxelMorph3D(generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        deform.flow_head.weight.mul_(1e3)
+    return {"deform": deform,
+            "affine": AffineNet3D(VOLUME_SIZE, generator=torch.Generator().manual_seed(3))}
+
+
+def spatial_volumes():
+    """Phase 8b's batch: two phantom heads through the rigid synthesis (one
+    K6a launch)."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    return _process_volume(head_volumes(10), VOLUME_SIZE, gen)["image_c"]
+
+
+def spatial_output(model, x):
+    """The forward's first output on ``x`` [B, D, H, W, 2], no gradient:
+    the deform flow, the affine θ."""
+    with torch.no_grad():
+        return model(x.permute(0, 4, 1, 2, 3).contiguous())[0]
+
+
+def output_error(got, want):
+    """The largest difference of ``got`` from ``want`` over ``want``'s
+    largest value."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def spatial_reference(stage, base, vols):
+    """One process's step of ``stage`` from ``base``'s weights on ``vols``:
+    cuDNN deterministic (the reference) and under two changes of rounding
+    (cuDNN's default algorithms; the batch's halves swapped): each run's
+    forward output, metrics, gradients and update, and its step time."""
+    before = host_state(base)
+    runs = {}
+    for label, batch, deterministic in (
+            ("deterministic", vols, True),
+            ("cuDNN's default algorithms", vols, False),
+            ("halves swapped", vols.flip(0), True)):
+        model = copy.deepcopy(base).to(DEV)
+        state = create_train_state(model, learning_rate=1e-4, adam_eps=1e-8)
+        step = SP_STEPS[stage](state)
+        with (deterministic_cudnn() if deterministic else contextlib.nullcontext()):
+            out = spatial_output(model, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if label == "halves swapped":
+            out = out.flip(0)
+        runs[label] = {"out": out.cpu(), "seconds": seconds,
+                       "metrics": {k: float(v) for k, v in metrics.items()},
+                       "grads": grads_of(model),
+                       "update": update_of(host_state(model), before)}
+        del model, state, step, out
+        torch.cuda.empty_cache()
+    return before, runs
+
+
+def spatial_path():
+    phase("8n. --spatial_shards: the 3-D steps over two ranks on cuda:0 (gloo), "
+          "data 1 x spatial 2, at 176 x 256 x 256, batch 2, fp32; the 3-D CLI")
+    folder = tempfile.mkdtemp(prefix="sp_ranks_")
+    port = free_port()
+    logs = [open(os.path.join(folder, f"log{r}.txt"), "w") for r in range(SP_WORLD)]
+    procs = []
+    for r in range(SP_WORLD):
+        with torchrun_env(r, SP_WORLD, port):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sp-rank", folder],
+                stdout=logs[r], stderr=subprocess.STDOUT))
+    try:
+        # meanwhile the single-process references and their yardsticks
+        vols = spatial_volumes()
+        refs = {stage: spatial_reference(stage, base, vols)
+                for stage, base in spatial_models().items()}
+        del vols
+        torch.cuda.empty_cache()
+        deadline = time.time() + SP_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(folder, f"log{r}.txt")) as f:
+            log = f.read()
+        print(f"  rank {r}: " + f"\n  rank {r}: ".join(log.strip().splitlines()[-14:]))
+        require(p.returncode == 0, f"rank {r} of the spatial run failed (exit {p.returncode})")
+    ranks = [json.load(open(os.path.join(folder, f"rank{r}.json"))) for r in range(SP_WORLD)]
+    for stage, (before, runs) in refs.items():
+        got = torch.load(os.path.join(folder, f"{stage}.pt"), weights_only=True)
+        ref = runs["deterministic"]
+        for r, res in enumerate(ranks):
+            require(all(n == SP_LAUNCHES[stage] for n in res[stage]["launches"]),
+                    f"rank {r} {stage}: each step should launch {SP_LAUNCHES[stage]}")
+            require(res[stage]["from_rank0"] == 0.0 and res[stage]["metrics"]
+                    == ranks[0][stage]["metrics"], f"rank {r} {stage}: the ranks differ")
+        grads = {k: v.double() for k, v in got["grads"].items()}
+        update = update_of(got["after"], before)
+        found = {"out": output_error(got["out"], ref["out"]),
+                 "grads": gradient_distance(grads, ref["grads"])[0],
+                 "update": relative_l2(update, ref["update"])}
+        spreads = {label: {"out": output_error(run["out"], ref["out"]),
+                           "grads": gradient_distance(run["grads"], ref["grads"])[0],
+                           "update": relative_l2(run["update"], ref["update"])}
+                   for label, run in runs.items() if label != "deterministic"}
+        bound = {k: max(2 * max(v[k] for v in spreads.values()), 1e-5) for k in found}
+        metrics = max(abs(ranks[0][stage]["metrics"][k] / v - 1)
+                      for k, v in ref["metrics"].items())
+        proj = projection(grads, ref["grads"])
+        what = "flow gathered over H" if stage == "deform" else "θ"
+        print(f"  (i) {stage}: two ranks against one process (cuDNN deterministic): "
+              f"metrics {metrics:.3g} relative (tolerance 1e-4); the forward's {what} "
+              f"{found['out']:.3g} of its scale, the summed gradients {found['grads']:.3g} "
+              f"in relative L2 (projection {proj:.6g}, tolerance 1 ± 0.25), the update "
+              f"{found['update']:.3g} (tolerances twice the single-process step's own "
+              f"spread, at least 1e-5: {bound['out']:.3g}, {bound['grads']:.3g}, "
+              f"{bound['update']:.3g}); its spread, forward / gradients / update: "
+              + "; ".join(f"{label} {v['out']:.3g} / {v['grads']:.3g} / {v['update']:.3g}"
+                          for label, v in spreads.items()))
+        res = ranks[0][stage]
+        print(f"  (i) {stage} step times (host clock; gloo through host memory on one "
+              f"card, while the other rank shares it: no multi-GPU time): rank 0 "
+              + ", ".join(f"{t:.3f}" for t in res["seconds"]) + " s, rank 1 "
+              + ", ".join(f"{t:.3f}" for t in ranks[1][stage]["seconds"])
+              + f" s; one process {ref['seconds']:.3f} s (beside the ranks); all_sum "
+              f"bytes a step, each rank: " + ", ".join(
+                  f"{b / 1e6:.3f} MB" for b in res["all_sum_bytes"])
+              + f"; the summed gradients {res['grad_bytes'] / 1e6:.3f} MB a step")
+        require(metrics <= 1e-4, f"{stage}: the two ranks' metrics and one process's "
+                "disagree")
+        require(all(found[k] <= bound[k] for k in found) and abs(proj - 1) <= 0.25,
+                f"{stage}: the two ranks' output, gradients or update and one "
+                "process's disagree")
+    for stage in ("affine", "deform"):
+        cli = [r["cli"][stage] for r in ranks]
+        print(f"  (ii) --stage {stage} --spatial_shards 2 --synthetic 1: steps "
+              f"{[c['step'] for c in cli]}, {cli[0]['seconds']:.1f} s, launches "
+              f"{cli[0]['launches']}, writers made {[len(c['writers']) for c in cli]}; "
+              f"rank 0 printed: {cli[0]['text'].strip()}")
+        require([c["step"] for c in cli] == [1, 1]
+                and all(c["launches"] == SP_LAUNCHES[stage] for c in cli)
+                and f"[{stage.upper()} epoch 1/1] loss" in cli[0]["text"]
+                and cli[1]["text"] == "" and len(cli[0]["writers"]) == 1
+                and cli[1]["writers"] == [],
+                f"--stage {stage} --spatial_shards 2: steps, launches, or rank 1 wrote")
+    shutil.rmtree(folder, ignore_errors=True)
+
+
+def sp_rank(folder):
+    """One rank of 8n: the deform and affine steps on its slab of phase
+    8b's batch, then the 3-D CLI with --spatial_shards 2, over a gloo group
+    of two on cuda:0 that it joins from torchrun's environment."""
+    init_from_env(DEV, backend="gloo")
+    rank = dist.get_rank()
+    try:
+        set_fp32_numerics()
+        grid = make_grid(SP_WORLD)
+        x = grid.local(spatial_volumes())
+        out = {"cli": {}}
+        for stage, model in spatial_models().items():
+            model.to(DEV)
+            state = create_train_state(model, learning_rate=1e-4, adam_eps=1e-8)
+            step = SP_STEPS[stage](state, group=grid.group, split=grid.split)
+            res = {"seconds": [], "launches": [], "all_sum_bytes": [],
+                   "grad_bytes": 4 * sum(p.numel() for p in model.parameters())}
+            with deterministic_cudnn():
+                model.split = grid.split
+                y = spatial_output(model, x)
+                model.split = None
+                if stage == "deform":
+                    y = grid.split.gather(y)
+                for i in range(2):
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    sent = all_sum.bytes
+                    t0 = time.perf_counter()
+                    metrics = step(x)
+                    torch.cuda.synchronize()
+                    res["seconds"].append(time.perf_counter() - t0)
+                    res["launches"].append(counts())
+                    res["all_sum_bytes"].append(all_sum.bytes - sent)
+                    if i == 0:
+                        res["metrics"] = {k: float(v) for k, v in metrics.items()}
+                        sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                        if rank == 0:  # the summed gradients Adam was given
+                            torch.save({"out": y.cpu(), "after": {k: v.cpu() for k, v in sd.items()},
+                                        "grads": {n: p.grad.detach().cpu()
+                                                  for n, p in model.named_parameters()}},
+                                       os.path.join(folder, f"{stage}.pt"))
+            res["from_rank0"] = 0.0
+            for v in sd.values():
+                v0 = v.clone()
+                dist.broadcast(v0, 0)
+                res["from_rank0"] = max(res["from_rank0"],
+                                        float((v.double() - v0.double()).abs().max()))
+            out[stage] = res
+            print(f"rank {rank} {stage}: launches {res['launches'][0]}, "
+                  f"{res['seconds']} s, all_sum bytes {res['all_sum_bytes']}", flush=True)
+            del model, state, step, y, sd
+            torch.cuda.empty_cache()
+        make_writer = tb_module._make_writer
+        for stage in ("affine", "deform"):
+            writers = []
+
+            def record(logdir, flush_secs):
+                writers.append(logdir)
+                return make_writer(logdir, flush_secs)
+
+            tb_module._make_writer = record
+            text = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            with contextlib.redirect_stdout(text):
+                state = cli_train_affine.main(
+                    ["--stage", stage, "--spatial_shards", str(SP_WORLD), "--synthetic",
+                     "1", "--epochs", "1", "--logdir", os.path.join(folder, f"log_{stage}")],
+                    device="cuda")
+            torch.cuda.synchronize()
+            out["cli"][stage] = {"step": state.step, "text": text.getvalue(),
+                                 "writers": writers, "launches": counts(),
+                                 "seconds": time.time() - t0}
+            tb_module._make_writer = make_writer
+            print(f"rank {rank} CLI {stage}: {out['cli'][stage]}", flush=True)
+            del state
+            torch.cuda.empty_cache()
+        with open(os.path.join(folder, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def step_medians_beside_ctypes():
     print("\n  train steps beside commit bf75122's (kernels called through "
           "torch.library ops now, ctypes inside autograd.Functions then):")
@@ -3879,6 +4157,15 @@ def main():
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--sp-rank"]:
+        sp_rank(sys.argv[2])
+        return
+    if sys.argv[1:3] == ["--phase", "8n"]:
+        card()
+        build()
+        spatial_path()
+        print("\nphases 1, 2 and 8n passed")
+        return
     t_start = time.time()
     marks = []
 
@@ -3940,6 +4227,8 @@ def main():
     dp_path(train_dirs)
     train_vols.cleanup()
     mark("A.7a-b: data parallel and --fsdp")
+    spatial_path()
+    mark("A.7c: --spatial_shards")
     vol_steps = {"affine": affine_step, "deform": deform_step}
     kernels = timings(eval_steps, imgs, segs, flow, errs, train_steps, train_imgs,
                       vol_steps, vols, vflow, velocity)

@@ -785,6 +785,39 @@ def test_warp3d_deform_integration_launches(dev):
     torch.testing.assert_close(v.grad.cpu(), v_cpu.grad, atol=1e-5, rtol=1e-4)
 
 
+def test_warp3d_slabs_match_whole_volume(dev):
+    """The spatially sharded composition at its full-width shape, (2, 3, 88,
+    128, 128), H split in two slabs, run in one process by slicing: each
+    slab's warp of the whole field at its global rows (``h_offset``) gives
+    that slab of the whole-volume warp (K6a, to the bit), its positions'
+    cotangent that slab of the whole's (K6b), and the two slabs' field
+    cotangents summed, as the gather's backward sums them over the ranks,
+    the whole's (K6c, atomics in another order)."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    shape = (2, 3, 88, 128, 128)
+    field = (torch.randn(shape, device=dev, generator=g) * 0.5).requires_grad_()
+    cot = torch.randn(shape, device=dev, generator=g)
+    whole = warp3d(field, field)
+    (dfield_whole,) = torch.autograd.grad((whole * cot).sum(), field)
+    counts = lambda: (sample3d_cuda.launches, sample3d_dpos_cuda.launches,
+                      sample3d_dvol_cuda.launches)
+    before = counts()
+    vol = field.detach().requires_grad_()   # the gathered field
+    slabs = [field.detach()[:, :, :, r * 64:(r + 1) * 64].clone().requires_grad_()
+             for r in range(2)]
+    outs = [warp3d(vol, f, h_offset=r * 64) for r, f in enumerate(slabs)]
+    grads = torch.autograd.grad(
+        sum((o * cot[:, :, :, r * 64:(r + 1) * 64]).sum() for r, o in enumerate(outs)),
+        [vol, *slabs])
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(counts(), before)) == (2, 2, 2)
+    torch.testing.assert_close(torch.cat(outs, 3), whole.detach(), atol=0, rtol=0)
+    # the field's cotangent: its own positions' rows (K6b, on the slab) plus
+    # the sample's cotangent into the whole field (K6c)
+    got = grads[0] + torch.cat(grads[1:], 3)
+    torch.testing.assert_close(got, dfield_whole, atol=1e-5, rtol=1e-5)
+
+
 def test_warp3d_kernel_gradients_against_fp64_differences(dev):
     """gradcheck's test of the op tpureg::sample3d: its analytic gradients (fp32
     kernels on the card) against central differences of the plain version

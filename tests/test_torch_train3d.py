@@ -288,10 +288,19 @@ def test_train_affine_cli_on_cpu(stage_name, capsys, tb_records, tmp_path):  # n
 
 
 def test_train_affine_cli_refusals(monkeypatch):
+    """``--spatial_shards 2`` without a process group to join;
+    ``--spatial_shards 3`` over a world of two gloo ranks (tpureg's
+    ``make_mesh`` asserts the same); no CUDA device without ``device``."""
+    from test_torch_parallel import spawn
     from tpureg_torch.cli.train_affine import main
 
-    with pytest.raises(NotImplementedError, match="spatial_shards"):
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="no process group to join"):
         main(["--spatial_shards", "2", "--synthetic", "1"], device="cpu")
+    ranks = spawn("spatial_cli", {"runs": {}, "dtype": torch.float32})
+    assert [r["refusal"] for r in ranks] == [
+        "--spatial_shards 3 does not divide a world of 2 ranks"] * 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--synthetic", "1"])

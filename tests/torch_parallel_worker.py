@@ -25,7 +25,21 @@ Cases:
   the largest difference of the weights at the end (gathered) from rank
   0's, rank 0's weights and Adam's moments, the files and writers this
   rank made, and what the CLI made its steps of and passed them
-  (``recording``).
+  (``recording``);
+- ``spatial_pieces``: the H split's gather, halo exchange and slab
+  convolution (``parallel.HSplit``) on the rank's slab, in fp64: outputs
+  gathered, input and weight gradients;
+- ``spatial_steps``: for each configuration in the inputs, a 3-D train
+  step on a ('data', 'spatial') grid (``parallel.make_grid``) from the same
+  weights on the rank's rows and slab (``Grid.local``): the forward's flow
+  and warped volume gathered over H (before the step), the metrics, the
+  summed gradients and the weights after the update;
+- ``spatial_cli``: the 3-D CLI (``tpureg_torch.cli.train_affine``) with
+  ``--spatial_shards`` for each argument list in the inputs, the first
+  joining the group through the CLI's own torchrun branch, under torch's
+  default dtype named in the inputs: what it printed, the TensorBoard
+  writers it made, its step count and the largest difference of its
+  weights from rank 0's; and the refusal of ``--spatial_shards 3``.
 """
 
 import contextlib
@@ -235,7 +249,121 @@ def cli(inputs, rank, world):
     return results
 
 
-CASES = {"bn_loss": bn_loss, "step": step, "cli": cli}
+def spatial_pieces(inputs, rank, world):
+    """Per case of ``inputs["convs"]`` ((k, s, p) along H, a [B, C, D, H, W]
+    input, weights and a cotangent), the slab convolution's output gathered
+    and its input and weight gradients; the gather of the input; the halo
+    exchange of (above, below) rows with a cotangent, gathered."""
+    import torch.nn.functional as F
+
+    from tpureg_torch.parallel import make_grid
+
+    split = make_grid(world).split
+    out = {"convs": [], "halos": []}
+    for case in inputs["convs"]:
+        conv = torch.nn.Conv3d(case["x"].shape[1], case["weight"].shape[0],
+                               case["k"], case["stride"], case["p"]).double()
+        conv.load_state_dict({"weight": case["weight"], "bias": case["bias"]})
+        x = split.slab(case["x"]).clone().requires_grad_(True)
+        y, is_slab = split.conv3d(conv, x, True)
+        # the rank's share of the cotangent: its slab, or all of it on rank
+        # 0 where the layer ran whole on every rank
+        cot = (split.slab(case["cot"]) if is_slab else
+               case["cot"] if rank == 0 else torch.zeros_like(case["cot"]))
+        (y * cot).sum().backward()
+        out["convs"].append({
+            "slab": is_slab, "y": split.gather(y.detach()) if is_slab else y.detach(),
+            "dx": x.grad, "dweight": conv.weight.grad, "dbias": conv.bias.grad,
+            "gathered": split.gather(split.slab(case["x"]))})
+    for above, below in inputs["halos"]:
+        x = split.slab(inputs["x"]).clone().requires_grad_(True)
+        y = split.halo(x, above, below)
+        cot = F.pad(inputs["cot"], (0, 0, above, below)).narrow(
+            3, split.start(x.shape[3]), y.shape[3])
+        (y * cot).sum().backward()
+        out["halos"].append({"y": y.detach(), "dx": x.grad})
+    return out
+
+
+def _volume_model(stage, size, state_dict, dtype):
+    from tpureg_torch.models import AffineNet3D, VoxelMorph3D
+
+    model = VoxelMorph3D() if stage == "deform" else AffineNet3D(size)
+    model = model.to(dtype)
+    model.load_state_dict(state_dict)
+    return model
+
+
+def spatial_steps(inputs, rank, world):
+    from tpureg_torch.parallel import make_grid
+    from tpureg_torch.train import (create_train_state, make_affine_train_step,
+                                    make_deform3d_train_step)
+
+    results = {}
+    for name, cfg in inputs["configs"].items():
+        grid = make_grid(cfg["spatial"])
+        vols = cfg["vols"]
+        model = _volume_model(cfg["stage"], tuple(vols.shape[1:4]), cfg["state_dict"],
+                              cfg["dtype"])
+        local = grid.local(vols)
+        x = local.permute(0, 4, 1, 2, 3).contiguous()
+        model.split = grid.split
+        with torch.no_grad():
+            outputs = model(x)
+        model.split = None
+        flow, warped = (outputs[0], outputs[1]) if cfg["stage"] == "deform" else (
+            None, outputs[1])
+        if grid.split is not None:
+            warped = grid.split.gather(warped)
+            flow = None if flow is None else grid.split.gather(flow)
+        state = create_train_state(model, learning_rate=1e-4, adam_eps=1e-8)
+        make = (make_deform3d_train_step if cfg["stage"] == "deform"
+                else make_affine_train_step)
+        metrics = make(state, group=grid.group, split=grid.split)(local)
+        results[name] = {
+            "data_index": grid.data_index, "flow": flow, "warped": warped,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+            "after": {k: v.clone() for k, v in model.state_dict().items()},
+            "step": state.step}
+    return results
+
+
+def spatial_cli(inputs, rank, world):
+    import io
+    from contextlib import redirect_stdout
+
+    import tpureg_torch.utils.tb as tb
+    from tpureg_torch.cli import train_affine
+
+    writers = []
+
+    def make_writer(logdir, flush_secs):
+        writers.append(logdir)
+        return None
+
+    tb._make_writer = make_writer
+    torch.set_default_dtype(inputs["dtype"])
+    results = {}
+    for name, argv in inputs["runs"].items():
+        del writers[:]
+        text = io.StringIO()
+        with redirect_stdout(text):
+            state = train_affine.main(argv, device="cpu")
+        sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+        results[name] = {"text": text.getvalue(), "writers": list(writers),
+                         "step": state.step,
+                         "from_rank0": _from_rank0(sd, dist.group.WORLD)}
+    try:
+        train_affine.main(["--spatial_shards", "3", "--synthetic", "1"], device="cpu")
+        results["refusal"] = None
+    except ValueError as e:
+        results["refusal"] = str(e)
+    return results
+
+
+CASES = {"bn_loss": bn_loss, "step": step, "cli": cli, "spatial_pieces": spatial_pieces,
+         "spatial_steps": spatial_steps, "spatial_cli": spatial_cli}
 
 
 def main():
@@ -244,7 +372,7 @@ def main():
     case, folder = sys.argv[1:3]
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     torch.set_num_threads(1)
-    if case != "cli":
+    if case not in ("cli", "spatial_cli"):
         init_from_env("cpu")
     try:
         inputs = torch.load(f"{folder}/inputs.pt", weights_only=False)

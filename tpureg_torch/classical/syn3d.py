@@ -57,17 +57,24 @@ def apply_flow3d(vol, flow, mode: str = "bilinear"):
     return (vals * inb[:, None, :].to(vol.dtype)).reshape(vol.shape)
 
 
-def _compose3d(flow_a, flow_b):
-    """Displacement of a∘b: b(x) + a(x + b(x))."""
-    return flow_b + warp3d(flow_a, flow_b)
+def _compose3d(flow_a, flow_b, split=None):
+    """Displacement of a∘b: b(x) + a(x + b(x)). Under ``split`` (an
+    ``HSplit``) both are this rank's slabs: ``a`` is gathered whole and
+    sampled at the slab's global positions."""
+    if split is None:
+        return flow_b + warp3d(flow_a, flow_b)
+    return flow_b + warp3d(split.gather(flow_a), flow_b,
+                           h_offset=split.start(flow_b.shape[3]))
 
 
-def exp_velocity3d(v, steps: int = 6):
+def exp_velocity3d(v, steps: int = 6, split=None):
     """exp(v) by scaling and squaring: v / 2^steps composed with itself
-    ``steps`` times."""
+    ``steps`` times. ``split``: ``v`` is this rank's slab of a field whose
+    H is split over the ranks of an ``HSplit``; the result is the slab of
+    the unsharded exponential."""
     flow = v / (2.0**steps)
     for _ in range(steps):
-        flow = _compose3d(flow, flow)
+        flow = _compose3d(flow, flow, split)
     return flow
 
 

@@ -13,9 +13,18 @@ printed per epoch, as tpureg prints it, and each average is written under
 unless ``device="cpu"`` is passed.
 
 The volumes are resized to ``--volume_size`` on real data too (tpureg's
-dataset always takes the default 176,256,256). Not ported:
-``--spatial_shards > 1`` (spatial sharding over several cards, ROADMAP.md
-item A.7) raises.
+dataset always takes the default 176,256,256).
+
+``--spatial_shards S > 1`` runs the step over a ('data', 'spatial') grid of
+the process group (``torchrun``; joined through ``parallel.init_from_env``
+unless a group is already initialised): world / S data indices of S ranks
+each, in tpureg's ``make_mesh`` order, each rank training on its rows of
+the global batch and its slab of their H (tpureg's
+``spatial_sharding(mesh, 5, axis=2)``). Every rank builds the same global
+batch from the same seed and cuts its part; the metrics are the global
+batch's, and rank 0 alone prints and writes TensorBoard. A world that S
+does not divide, a batch that the data indices do not divide, and S > 1
+without a process group are refused.
 """
 
 from __future__ import annotations
@@ -23,9 +32,11 @@ from __future__ import annotations
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from ..data import random_volume_batch, volume_dataset
 from ..models import AffineNet3D, VoxelMorph3D
+from ..parallel import Grid, init_from_env, local_rows, make_grid
 from ..train import (
     create_train_state,
     make_affine_train_step,
@@ -54,8 +65,8 @@ def build_argparser():
     p.add_argument("--volume_size", default="176,256,256",
                    help="D,H,W (reference: 176 slices of 256²)")
     p.add_argument("--spatial_shards", default=1, type=int,
-                   help="shard volume H over this many devices (not ported: "
-                        "only 1)")
+                   help="shard volume H over this many ranks of the process "
+                        "group (torchrun)")
     p.add_argument("--logdir", default="./log_affine")
     p.add_argument("--seed", default=6, type=int)
     return p
@@ -63,10 +74,16 @@ def build_argparser():
 
 def main(argv=None, device=None):
     args = build_argparser().parse_args(argv)
-    if args.spatial_shards > 1:
-        raise NotImplementedError("--spatial_shards > 1 (spatial sharding over "
-                                  "several cards) is not ported yet")
     dev = resolve_device(device)
+    # one process whatever the group for S = 1, as tpureg builds no mesh
+    grid, rank = Grid(None, 1, 0, None), 0
+    if args.spatial_shards > 1:
+        if not dist.is_initialized():
+            dev = init_from_env(dev)
+        grid = make_grid(args.spatial_shards)
+        # refuse a batch that does not split over the data indices
+        local_rows(args.batch_size, grid.n_data, grid.data_index)
+        rank = dist.get_rank()
     seed_everything(args.seed)
     size = tuple(int(x) for x in args.volume_size.split(","))
 
@@ -75,13 +92,11 @@ def main(argv=None, device=None):
     model = VoxelMorph3D(generator=gen) if deform else AffineNet3D(size, gen)
     state = create_train_state(model.to(dev), learning_rate=args.lrIni,
                                adam_eps=1e-8)
-    if deform:
-        train_step = make_deform3d_train_step(state)
-        meter_keys = ("loss", "photo_loss", "corr_loss", "smooth_loss")
-    else:
-        train_step = make_affine_train_step(state)
-        meter_keys = ("loss", "photo_loss", "corr_loss")
-    writer = MetricWriter(args.logdir, flush_secs=30)
+    make_step = make_deform3d_train_step if deform else make_affine_train_step
+    train_step = make_step(state, group=grid.group, split=grid.split)
+    meter_keys = ("loss", "photo_loss", "corr_loss") + (
+        ("smooth_loss",) if deform else ())
+    writer = MetricWriter(args.logdir, flush_secs=30) if rank == 0 else None
     meters = {k: AverageMeter() for k in meter_keys}
 
     for e in range(args.epochs):
@@ -95,16 +110,19 @@ def main(argv=None, device=None):
         for m in meters.values():
             m.reset()
         for batch in loader:
-            metrics = train_step(batch["image_c"])
+            metrics = train_step(grid.local(batch["image_c"]))
             for k, m in meters.items():
                 m.update(float(metrics[k]))
+        if writer is None:
+            continue
         tag = "DEFORM" if deform else "AFFINE"
         print(f"[{tag} epoch {e + 1}/{args.epochs}] loss {meters['loss'].avg:.4f} "
               f"photo {meters['photo_loss'].avg:.4f} "
               f"corr {meters['corr_loss'].avg:.4f}", flush=True)
         for k, m in meters.items():
             writer.add_scalar(f"{tag.lower()}_{k}", m.avg, e + 1)
-    writer.close()
+    if writer is not None:
+        writer.close()
     return state
 
 

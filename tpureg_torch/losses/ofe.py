@@ -29,7 +29,15 @@ ranks, are the global batch's.
 The volumetric losses (ofe.py:61-63, :103-105, :156-207 there) take NCDHW
 volumes [B, 1, D, H, W] and flows [B, 3, D, H, W] at one scale, with no
 resize: ``DEFloss3D`` for the deformable model, ``Affloss`` for the affine
-stage; they have no process group, since no data-parallel step runs them.
+stage. They follow ``OFEloss(group=)``'s convention over the ranks of a
+('data', 'spatial') grid (``group`` the world, ``split`` this rank's
+``HSplit`` when the volume's H is split), each rank holding its rows and
+its slab: the photometric and smoothness terms are the rank's sums over
+the global B (the global B all-reduced from the first spatial rank of each
+data index), the smoothness's H difference at a slab's last row taking the
+next slab's first row (one halo row; the last slab's far face keeps the
+zero pad), and the Pearson term 1/W of the global value on each of the W
+ranks.
 """
 
 from __future__ import annotations
@@ -159,30 +167,51 @@ def OFEloss(
     return p_loss, c_loss, s_loss, p_loss + s_loss + c_loss
 
 
-def photometric_loss_3d(fixed, warped):
+def photometric_loss_3d(fixed, warped, batch=None):
     """Charbonnier photometric difference of two volumes, summed, per batch
-    element; no resize (reference loss.py:16-18)."""
-    return torch.sum(charbonnier(fixed - warped)) / fixed.shape[0]
+    element; no resize (reference loss.py:16-18). ``batch``: the global
+    batch the sum is divided by (this rank's share), else ``fixed``'s."""
+    return torch.sum(charbonnier(fixed - warped)) / (
+        fixed.shape[0] if batch is None else batch)
 
 
-def correlation_loss_3d(fixed, warped):
-    """1 - global Pearson of two volumes, no resize (reference loss.py:38-50)."""
-    return _pearson_one_minus(fixed, warped, warped.shape[0])
+def correlation_loss_3d(fixed, warped, group=None, lead: bool = True):
+    """1 - global Pearson of two volumes, no resize (reference loss.py:38-50);
+    under a ``group`` of several ranks, each holding its rows or its slab of
+    them, the global value (``lead``: this rank counts its rows into the
+    global B, the first spatial rank of its data index)."""
+    return _pearson_one_minus(fixed, warped, warped.shape[0] if lead else 0, group)
 
 
-def smoothness_loss_3d(flow):
+def smoothness_loss_3d(flow, batch=None, split=None):
     """Charbonnier of zero-padded forward differences of ``flow``
     [B, 3, D, H, W] along each spatial axis, summed over the three
     components / 3, per batch element: the 2-D construction, far faces
-    penalising the raw flow."""
+    penalising the raw flow. ``batch``: as ``photometric_loss_3d``'s;
+    ``split``: ``flow`` is this rank's slab of H, whose last row's
+    difference takes the next slab's first row."""
     s = 0.0
     for axis in (2, 3, 4):
         n = flow.shape[axis]
-        shifted = torch.cat([flow.narrow(axis, 1, n - 1),
-                             torch.zeros_like(flow.narrow(axis, 0, 1))], dim=axis)
+        if axis == 3 and split is not None:
+            shifted = split.halo(flow, 0, 1).narrow(axis, 1, n)
+        else:
+            shifted = torch.cat([flow.narrow(axis, 1, n - 1),
+                                 torch.zeros_like(flow.narrow(axis, 0, 1))], dim=axis)
         s = s + charbonnier(flow - shifted)
     s = torch.sum(s, dim=1) / 3.0
-    return torch.sum(s) / flow.shape[0]
+    return torch.sum(s) / (flow.shape[0] if batch is None else batch)
+
+
+def _volume_shares(fixed, group, split):
+    """(global B this rank's sums divide by, W, whether this rank counts
+    its rows) over a grid's ``group``, or (None, 1, True) for one
+    process."""
+    if not spans_ranks(group):
+        return None, 1, True
+    lead = split is None or split.index == 0
+    b = fixed.new_tensor(fixed.shape[0] if lead else 0)
+    return all_sum(b, group), rank_and_world(group)[1], lead
 
 
 def DEFloss3D(
@@ -192,18 +221,29 @@ def DEFloss3D(
     lamb_da: float = 0.5,
     gamma: float = 100.0,
     zeta: float = 100.0,
+    group=None,
+    split=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Deformable 3-D loss → (photo, corr, smooth, total): γ·photometric +
-    ζ·correlation + λ·smoothness, at one scale."""
-    p_loss = gamma * photometric_loss_3d(fixed, warped)
-    c_loss = zeta * correlation_loss_3d(fixed, warped)
-    s_loss = lamb_da * smoothness_loss_3d(flow)
+    ζ·correlation + λ·smoothness, at one scale. ``group``, ``split``: this
+    rank's shares on a grid (the module docstring)."""
+    batch, world, lead = _volume_shares(fixed, group, split)
+    p_loss = gamma * photometric_loss_3d(fixed, warped, batch)
+    c_loss = zeta * correlation_loss_3d(fixed, warped, group, lead)
+    if world > 1:
+        c_loss = c_loss / world
+    s_loss = lamb_da * smoothness_loss_3d(flow, batch, split)
     return p_loss, c_loss, s_loss, p_loss + c_loss + s_loss
 
 
-def Affloss(warped, fixed, lamb_da: float = 1.0, gamma: float = 1.0):
+def Affloss(warped, fixed, lamb_da: float = 1.0, gamma: float = 1.0, group=None,
+            split=None):
     """Affine-stage loss → (photo, corr, total); λ multiplies the correlation
-    term, as in the reference (loss.py:87-94)."""
-    p_loss = gamma * photometric_loss_3d(fixed, warped)
-    c_loss = lamb_da * correlation_loss_3d(fixed, warped)
+    term, as in the reference (loss.py:87-94). ``group``, ``split``: as
+    ``DEFloss3D``'s."""
+    batch, world, lead = _volume_shares(fixed, group, split)
+    p_loss = gamma * photometric_loss_3d(fixed, warped, batch)
+    c_loss = lamb_da * correlation_loss_3d(fixed, warped, group, lead)
+    if world > 1:
+        c_loss = c_loss / world
     return p_loss, c_loss, p_loss + c_loss

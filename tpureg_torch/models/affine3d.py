@@ -16,6 +16,19 @@ card the sample runs kernel K6a, and K6b in the backward to ``theta``.
 
 NCDHW: input [B, 2, D, H, W] (fixed, moving); ``forward`` returns
 ``(theta [B, 3, 4], warped [B, 1, D, H, W])``.
+
+``split``: None, or for the duration of a spatially sharded step an
+``HSplit`` (``parallel/spatial.py``): the input is then this rank's slab of
+the volume's H. The convolutions run on their slabs as far as the rows
+split (every layer at 176 x 256 x 256 over 2 or 4 ranks; at H = 64 over 2
+ranks conv6, whose input has 2 rows in all, runs whole on the gathered
+conv5 output). The flatten puts H inside D, so a slab's features meet a
+strided subset of the Dense layer's columns: θ is the ``all_sum`` over the
+spatial ranks of the slab's features times those columns of ``fc.weight``
+(viewed as [12, D', H', W', C]), plus ``fc.bias`` once, after the sum.
+Every rank then holds the whole θ, and its warp samples the gathered
+moving volume at its slab's output positions; ``warped`` is the slab of the
+unsharded warp.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from torch import nn
 
 from ..nn.layers import conv3d
 from ..ops.warp import sample3d
+from ..parallel.mesh import all_sum
 
 __all__ = ["AffineNet3D", "affine_warp3d"]
 
@@ -42,15 +56,19 @@ def _norm_coords(n: int, device):
     return (2.0 * torch.arange(n, dtype=torch.float32, device=device) + 1.0) / n - 1.0
 
 
-def affine_warp3d(vol, theta):
+def affine_warp3d(vol, theta, rows: Optional[Tuple[int, int]] = None):
     """Warp ``vol`` [B, C, D, H, W] by ``theta`` [B, 3, 4] (torch
     ``affine_grid`` + ``grid_sample(align_corners=False)``, zero padding).
 
     The normalised target of each voxel is ``theta @ (x, y, z, 1)``, summed
-    in that order; the voxel position is ``((g + 1)·n − 1) / 2``."""
+    in that order; the voxel position is ``((g + 1)·n − 1) / 2``.
+    ``rows`` = (first, count): only those output rows of H, at their global
+    normalised coordinates (a slab of the unsharded warp)."""
     _, _, d, h, w = vol.shape
-    zz, yy, xx = torch.meshgrid(_norm_coords(d, vol.device),
-                                _norm_coords(h, vol.device),
+    ys = _norm_coords(h, vol.device)
+    if rows is not None:
+        ys = ys.narrow(0, *rows)
+    zz, yy, xx = torch.meshgrid(_norm_coords(d, vol.device), ys,
                                 _norm_coords(w, vol.device), indexing="ij")
     t = theta.float()[:, :, :, None, None, None]  # [B, 3, 4, 1, 1, 1]
     pos = [xx * t[:, j, 0] + yy * t[:, j, 1] + zz * t[:, j, 2] + t[:, j, 3]
@@ -78,8 +96,11 @@ class AffineNet3D(nn.Module):
         with torch.no_grad():
             self.fc.weight.zero_()
             self.fc.bias.copy_(torch.tensor(IDENTITY))
+        self.split = None
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.split is not None:
+            return self._forward_split(x, self.split)
         b = x.shape[0]
         moving = x[:, 1:2]
         y = x
@@ -88,3 +109,25 @@ class AffineNet3D(nn.Module):
         y = y.permute(0, 2, 3, 4, 1).reshape(b, -1)  # flax's NDHWC flatten
         theta = self.fc(y).reshape(b, 3, 4)
         return theta, affine_warp3d(moving, theta)
+
+    def _forward_split(self, x, sp) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` on this rank's slab ``x`` of the volume's H (the module
+        docstring)."""
+        b, h = x.shape[0], x.shape[3] * sp.shards
+        moving = x[:, 1:2]
+        y, split = x, True
+        for i in range(1, len(SPECS) + 1):
+            y, split = sp.conv3d(getattr(self, f"conv{i}"), y, split)
+            y = F.relu(y)
+        y = y.permute(0, 2, 3, 4, 1)  # NDHWC, flax's flatten order
+        if split:
+            d_, h_, w_, c_ = y.shape[1:]
+            weight = self.fc.weight.view(12, d_, h_ * sp.shards, w_, c_)
+            weight = weight.narrow(2, sp.start(h_), h_)
+            theta = all_sum(torch.einsum("bdhwc,jdhwc->bj", y, weight), sp.group)
+            theta = theta + self.fc.bias
+        else:
+            theta = self.fc(y.reshape(b, -1))
+        theta = theta.reshape(b, 3, 4)
+        n = x.shape[3]
+        return theta, affine_warp3d(sp.gather(moving), theta, (sp.start(n), n))

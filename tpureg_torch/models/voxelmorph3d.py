@@ -18,6 +18,18 @@ NCDHW: the input is [B, 2, D, H, W] (fixed, moving); ``forward`` returns
 velocity [B, 3, D/s, H/s, W/s])``. D, H and W must be divisible by
 2^len(enc_features). Module names follow the flax tree (``enc0.conv``,
 ``dec2.conv``, ``extra1.conv``, ``flow_head``).
+
+``split``: None, or for the duration of a spatially sharded step an
+``HSplit`` (``parallel/spatial.py``): the input is then this rank's slab of
+the volume's H, and the model runs slab convolutions (halos from the
+neighbouring ranks), the local nearest ×2 and concatenation, the velocity
+head on the slab, the exponential's compositions on gathered fields at the
+slab's global positions, the final resize from the gathered field and the
+warp of the gathered moving volume; ``forward`` returns this rank's slabs
+of ``flow``, ``warped`` and ``velocity``, the slabs of the unsharded
+results. A layer whose rows stop splitting evenly runs whole on every rank
+from there on (``HSplit.conv3d``); S·2^len(enc_features) dividing H keeps
+every layer on its slab.
 """
 
 from __future__ import annotations
@@ -87,8 +99,11 @@ class VoxelMorph3D(nn.Module):
             cin = f
         self.flow_head = conv3d(cin, 3, 3, kernel_init=init_normal(1e-5),
                                 generator=generator)
+        self.split = None
 
     def forward(self, x):
+        if self.split is not None:
+            return self._forward_split(x, self.split)
         d, h, w = x.shape[2:]
         moving = x[:, 1:2]
         skips = []
@@ -109,4 +124,42 @@ class VoxelMorph3D(nn.Module):
         if self.int_downsize == 2:
             flow = resize_nd(flow, (d, h, w), "linear", align_corners=True) * 2.0
         warped = warp3d(moving, flow)
+        return flow, warped, velocity
+
+    def _forward_split(self, x, sp):
+        """``forward`` on this rank's slab ``x`` of the volume's H (the module
+        docstring); each activation is carried with whether it is a slab."""
+        d, h, w = x.shape[2], x.shape[3] * sp.shards, x.shape[4]
+        moving = x[:, 1:2]
+
+        def block(name, y, split):
+            y, split = sp.conv3d(getattr(self, name).conv, y, split)
+            return leaky_relu(y, 0.2), split
+
+        skips = []
+        y, split = x, True
+        for i in range(self.n_enc):
+            y, split = block(f"enc{i}", y, split)
+            skips.append((y, split))
+        for i in range(self.n_up):
+            y, split = block(f"dec{i}", y, split)
+            y = _up2(y)
+            if i + 2 <= self.n_enc:
+                skip, skip_split = skips[-(i + 2)]
+                if skip_split and not split:
+                    skip = sp.gather(skip)
+                y = torch.cat([y, skip], dim=1)
+        for i in range(self.n_extra):
+            y, split = block(f"extra{i}", y, split)
+        velocity, split = sp.conv3d(self.flow_head,
+                                    y.to(self.flow_head.weight.dtype), split)
+        if split:
+            flow = exp_velocity3d(velocity, self.int_steps, sp)
+        else:
+            flow = sp.slab(exp_velocity3d(velocity, self.int_steps))
+            velocity = sp.slab(velocity)
+        if self.int_downsize == 2:
+            flow = resize_nd(flow, (d, h, w), "linear", align_corners=True,
+                             split=sp) * 2.0
+        warped = warp3d(sp.gather(moving), flow, h_offset=sp.start(flow.shape[3]))
         return flow, warped, velocity

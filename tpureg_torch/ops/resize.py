@@ -46,11 +46,21 @@ def resize2d(x, size, method: str = "bilinear", align_corners: bool = False):
     return y.to(x.dtype)
 
 
-def resize_nd(x, size, method: str = "linear", align_corners: bool = False):
+def resize_nd(x, size, method: str = "linear", align_corners: bool = False,
+              split=None):
     """Resize NCDHW ``x`` to ``size=(D_out, H_out, W_out)`` in fp32 (fp64
     for an fp64 input), returning the input dtype: ``"linear"`` (trilinear,
     either align_corners) or the legacy ``"nearest"``; the input itself when
-    the size is unchanged."""
+    the size is unchanged.
+
+    ``split`` (an ``HSplit``): ``x`` is this rank's slab of a tensor whose H
+    is split over the ranks and ``size`` the whole output's; the result is
+    this rank's slab of the unsharded resize, cut from the resize of the
+    gathered input (an output row may read an input row of the next slab:
+    VoxelMorph3D's 128 → 256, align_corners=True, reads row y·127/255).
+    A nearest ×2 needs no split: it is local to the slab."""
+    if split is not None:
+        return split.slab(resize_nd(split.gather(x), size, method, align_corners))
     size = tuple(int(n) for n in size)
     if tuple(x.shape[2:]) == size:
         return x

@@ -528,13 +528,21 @@ def voxel_grid(d: int, h: int, w: int, device=None, dtype=torch.float32):
                             for n in (d, h, w)), indexing="ij")
 
 
-def warp3d(vol, flow):
+def warp3d(vol, flow, h_offset: int = 0):
     """Backward-warp NCDHW ``vol`` by ``flow`` [B, 3, D, H, W] in voxels,
     channels (u_x, u_y, u_z): samples at ``p = xyz + flow`` (tpureg's pixel
     convention, warp.py:248-265). Positions are fp32 (fp64 for an fp64
-    flow)."""
+    flow).
+
+    ``h_offset``: ``flow`` is the slab of a field whose H is split over
+    ranks, its first row the voxel grid's row ``h_offset``, and ``vol`` is
+    whole (gathered): the slab's positions are the global ones, so the
+    result is the slab of the unsharded warp, and it samples any row of
+    ``vol``."""
     _, _, d, h, w = flow.shape
     compute = _compute_dtype(flow)
     zz, yy, xx = voxel_grid(d, h, w, flow.device, compute)
+    if h_offset:
+        yy = yy + h_offset
     return sample3d(vol, xx + flow[:, 0].to(compute),
                     yy + flow[:, 1].to(compute), zz + flow[:, 2].to(compute))

@@ -24,20 +24,35 @@ across the processes with the pieces here:
 - ``local_rows(n, world, rank, accum_steps)``: the rows of a global batch
   that a rank holds, in tpureg's microbatch order;
 - ``all_sum(x, group)``: an all-reduce of sums that autograd
-  differentiates: its backward is the all-reduce of the cotangents.
+  differentiates: its backward is the all-reduce of the cotangents
+  (``all_sum.bytes`` counts the bytes it reduces, forward and backward).
+
+The ``'spatial'`` axis (``--spatial_shards``), the counterpart of
+``make_mesh(n_data, n_spatial)``:
+
+- ``grid_position(rank, world, spatial)``: a rank's (data index, spatial
+  index), ``make_mesh``'s reshape order (r // S, r % S);
+  ``spatial_ranks(world, spatial)``: each data index's spatial ranks;
+- ``make_grid(spatial)``: the ``Grid`` of the default group: the world
+  group, which the loss and the gradients reduce over, and this rank's data
+  index and its spatial group's ``HSplit`` (``spatial.py``: the slabs,
+  gathers, halos and slab convolutions of the volume's H split), every
+  spatial group created by every rank in the same order.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
 __all__ = ["rank_and_world", "spans_ranks", "init_from_env", "FSDP_MIN_SIZE",
-           "fsdp_param_dim", "flax_dims", "local_rows", "all_sum"]
+           "fsdp_param_dim", "flax_dims", "local_rows", "all_sum", "grid_position",
+           "spatial_ranks", "Grid", "make_grid"]
 
 # tpureg's FSDP threshold (mesh.py:75-104): smaller parameters are replicated
 FSDP_MIN_SIZE = 2**16
@@ -124,19 +139,22 @@ def local_rows(n: int, world: int, rank: int, accum_steps: int = 1) -> torch.Ten
     return rows[:, rank].reshape(-1)
 
 
+def _reduced(x, group):
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=group)
+    all_sum.bytes += y.numel() * y.element_size()
+    return y
+
+
 class _AllSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
+        return _reduced(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        g = grad.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _reduced(grad, ctx.group), None
 
 
 def all_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -145,3 +163,64 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     the backward, so with each rank's loss a share of the global one, the
     gradient each rank finds is its share of the global gradient."""
     return _AllSum.apply(x, group)
+
+
+all_sum.bytes = 0
+
+
+def grid_position(rank: int, world: int, spatial: int) -> Tuple[int, int]:
+    """(data index, spatial index) of ``rank`` on a ('data', 'spatial')
+    grid of ``world // spatial`` x ``spatial`` ranks, in ``make_mesh``'s
+    order (the device list reshaped to (n_data, S): r // S, r % S). Raises,
+    as ``make_mesh``'s assertion does, unless ``spatial`` divides
+    ``world``."""
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"--spatial_shards {spatial} does not divide a world of "
+                         f"{world} ranks")
+    return rank // spatial, rank % spatial
+
+
+def spatial_ranks(world: int, spatial: int) -> List[List[int]]:
+    """The ranks of each data index's spatial group, by data index."""
+    grid_position(0, world, spatial)
+    return [[d * spatial + s for s in range(spatial)] for d in range(world // spatial)]
+
+
+@dataclass
+class Grid:
+    """This rank on the ('data', 'spatial') grid: ``group`` the world group
+    (None for one process), ``n_data`` and ``data_index`` its data axis,
+    ``split`` its spatial group's ``HSplit`` (None for S = 1)."""
+
+    group: Optional[object]
+    n_data: int
+    data_index: int
+    split: Optional[object]
+
+    def local(self, vols: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (``local_rows``) of a global batch ``vols``
+        [B, D, H, W, C], and its slab of their H (``vols`` itself for one
+        process)."""
+        if self.n_data == 1 and self.split is None:
+            return vols
+        vols = vols.index_select(0, local_rows(vols.shape[0], self.n_data,
+                                               self.data_index).to(vols.device))
+        return vols if self.split is None else self.split.slab(vols, dim=2)
+
+
+def make_grid(spatial: int) -> Grid:
+    """The ``Grid`` of the default process group (one process when none is
+    initialised) with ``spatial`` ranks a spatial group. Every rank creates
+    every spatial group, in the same order (``dist.new_group`` requires
+    it)."""
+    from .spatial import HSplit
+
+    rank, world = rank_and_world()
+    data, index = grid_position(rank, world, spatial)
+    split = None
+    if spatial > 1:
+        for ranks in spatial_ranks(world, spatial):
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                split = HSplit(group, index, spatial)
+    return Grid(dist.group.WORLD if world > 1 else None, world // spatial, data, split)

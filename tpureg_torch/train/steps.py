@@ -58,7 +58,16 @@ the pair, with the same casts as the train step.
 ``make_deform3d_train_step`` and ``make_affine_train_step`` are the
 volumetric steps (tpureg steps.py:345-409): VoxelMorph3D with ``DEFloss3D``
 and AffineNet3D with ``Affloss`` on [B, D, H, W, 2] volumes, in fp32 with
-TF32 off, one Adam update each.
+TF32 off, one Adam update each. With ``group`` (the world of a
+('data', 'spatial') grid, ``parallel.make_grid``) each rank passes its rows
+of the global batch and, with ``split`` (its spatial group's ``HSplit``,
+``--spatial_shards``), its slab of their H (``Grid.local``): the model runs
+on the slab for the step's duration (its ``split``), the loss terms are the
+rank's shares (``DEFloss3D``/``Affloss`` with ``group``, ``split``), and
+the metrics and the parameter gradients are summed over the world before
+one Adam update on every rank, so that the result is tpureg's step on the
+global batch and the whole volume (its GSPMD step over
+``spatial_sharding(mesh, 5, axis=2)``).
 """
 
 from __future__ import annotations
@@ -440,53 +449,69 @@ def make_flow_supervised_step(state, compute_dtype: Optional[torch.dtype] = None
     return step
 
 
-def _volume_train_step(state, terms_of):
+def _volume_train_step(state, terms_of, group=None, split=None):
     """``train_step(vols) -> metrics``: ``terms_of(model, x)`` gives the
     metrics of NCDHW ``x`` [B, 2, D, H, W], the total under ``"loss"``; one
-    gradient of it and one Adam update."""
+    gradient of it and one Adam update. ``group``, ``split``: the rank's
+    shares on a grid (the module docstring), metrics and gradients summed
+    over ``group``."""
     set_fp32_numerics()
     model = state.model
     params = [p for p in model.parameters() if p.requires_grad]
+    dp = _DataParallel(group, replicated=False)
 
     def train_step(vols):
         model.train()
         x = vols.permute(0, 4, 1, 2, 3).contiguous()
-        with torch.enable_grad():
-            metrics = terms_of(model, x)
-            grads = torch.autograd.grad(metrics["loss"], params)
+        model.split = split
+        try:
+            with torch.enable_grad():
+                metrics = terms_of(model, x)
+                grads = torch.autograd.grad(metrics["loss"], params)
+        finally:
+            model.split = None
+        grads = dp.gradients(params, grads)
         for p, g in zip(params, grads):
             p.grad = g
         state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+        names = list(metrics)
+        values = dp.metrics(torch.stack([metrics[k].detach() for k in names]))
+        return dict(zip(names, values.unbind()))
 
     return train_step
 
 
-def make_deform3d_train_step(state, loss_kwargs: Optional[dict] = None):
+def make_deform3d_train_step(state, loss_kwargs: Optional[dict] = None,
+                             group=None, split=None):
     """``train_step(vols) -> metrics`` for a ``TrainState`` around a
     ``VoxelMorph3D``: ``vols`` [B, D, H, W, 2] (fixed, moving); ``DEFloss3D``
     of the warped moving volume against the fixed one and of the flow;
     metrics ``loss``, ``photo_loss``, ``corr_loss``, ``smooth_loss`` (0-d
-    fp32 tensors, detached)."""
+    fp32 tensors, detached). ``group``, ``split``: on a grid, ``vols`` is
+    this rank's rows and slab, and the metrics the global batch's."""
     loss_kwargs = loss_kwargs or {}
 
     def terms(model, x):
         flow, warped, _ = model(x)
-        p, c, s, total = DEFloss3D(flow, warped, x[:, 0:1], **loss_kwargs)
+        p, c, s, total = DEFloss3D(flow, warped, x[:, 0:1], **loss_kwargs,
+                                   group=group, split=split)
         return {"loss": total, "photo_loss": p, "corr_loss": c, "smooth_loss": s}
 
-    return _volume_train_step(state, terms)
+    return _volume_train_step(state, terms, group, split)
 
 
-def make_affine_train_step(state, loss_kwargs: Optional[dict] = None):
+def make_affine_train_step(state, loss_kwargs: Optional[dict] = None,
+                           group=None, split=None):
     """``train_step(vols) -> metrics`` for a ``TrainState`` around an
     ``AffineNet3D``: ``Affloss`` of the affinely warped moving volume
-    against the fixed one; metrics ``loss``, ``photo_loss``, ``corr_loss``."""
+    against the fixed one; metrics ``loss``, ``photo_loss``, ``corr_loss``.
+    ``group``, ``split``: as ``make_deform3d_train_step``'s."""
     loss_kwargs = loss_kwargs or {}
 
     def terms(model, x):
         _, warped = model(x)
-        p, c, total = Affloss(warped, x[:, 0:1], **loss_kwargs)
+        p, c, total = Affloss(warped, x[:, 0:1], **loss_kwargs, group=group,
+                              split=split)
         return {"loss": total, "photo_loss": p, "corr_loss": c}
 
-    return _volume_train_step(state, terms)
+    return _volume_train_step(state, terms, group, split)
