@@ -105,6 +105,22 @@ def test_exported_graph_names_the_ops(head, key):
 
 
 @pytest.mark.parametrize("key", list(SEGS))
+def test_spans_leave_the_exported_graph_as_it_is(head, key):
+    """Exported while a profiler records (every span of the head a
+    ``record_function``), the graph has the nodes of the graph exported
+    while nothing records (every span a no-op)."""
+    def nodes():
+        ep = export_registration(head, BATCH, SIZE, with_segs=SEGS[key])
+        return [(n.op, str(n.target)) for n in ep.graph.nodes]
+
+    quiet = nodes()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced = nodes()
+    assert any(e.name == "tpureg.warp" for e in prof.events())
+    assert traced == quiet
+
+
+@pytest.mark.parametrize("key", list(SEGS))
 def test_artifact_round_trip_equals_the_live_head(head, batch, key, work_path):  # noqa: F811
     with_segs = SEGS[key]
     path = str(work_path / "flownets.pt2")

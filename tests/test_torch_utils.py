@@ -1,8 +1,8 @@
 """The port's host utilities on the CPU: ``MetricWriter`` (events read back
 with TensorBoard's ``EventAccumulator``, the tensorboardX fallback, and the
 no-op path with its one warning), ``flow_io`` bit for bit against tpureg's
-on the same arrays, and ``profiling`` (the timers, ``device_memory_stats``
-without a card and a ``torch.profiler`` trace)."""
+on the same arrays, and ``profiling.trace`` (a ``torch.profiler`` trace;
+the spans are ``test_torch_tracing.py``'s)."""
 
 import glob
 import json
@@ -14,13 +14,7 @@ import pytest
 import torch
 
 from tpureg.utils import flow_io as jax_flow_io
-from tpureg_torch.utils import (
-    IteratorTimer,
-    TimerBlock,
-    device_memory_stats,
-    flow_io,
-    trace,
-)
+from tpureg_torch.utils import flow_io, span, trace
 from tpureg_torch.utils.tb import MetricWriter
 
 # ---------------------------------------------------------------------------
@@ -143,28 +137,14 @@ def test_read_gen_reads_images_as_tpureg(tmp_path):
 # profiling
 
 
-def test_timers_log_and_count():
-    lines = []
-    with TimerBlock("epoch", log=lines.append) as block:
-        block.log_step("batch")
-    assert lines[0] == "epoch" and lines[1].endswith("] batch")
-    assert lines[2].endswith("] done") and len(lines) == 3
-    timer = IteratorTimer(range(4))
-    assert list(timer) == [0, 1, 2, 3]
-    assert timer.count == 4 and timer.sum >= 0 and timer.avg == timer.sum / 4
-
-
-def test_device_memory_stats_without_a_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert device_memory_stats() == {"cpu": {}}
-
-
 def test_trace_writes_a_tensorboard_profile(tmp_path):
     a = torch.ones(16, 16)
     with trace(str(tmp_path / "prof")) as prof:
-        (a @ a).sum()
+        with span("tpureg.model"):
+            (a @ a).sum()
     assert any(e.key == "aten::mm" for e in prof.key_averages())
     (path,) = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    assert any(e.get("name") == "tpureg.model" for e in events)

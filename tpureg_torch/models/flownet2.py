@@ -35,6 +35,7 @@ from torch import nn
 from ..ops.channelnorm import channelnorm
 from ..ops.resize import resize2d
 from ..ops.warp import warp2d
+from ..utils.profiling import span
 from .flownet_c import FlowNetC
 from .flownet_fusion import FlowNetFusion
 from .flownet_s import FlowNetS
@@ -77,27 +78,32 @@ class FlowNet2(nn.Module):
         x2 = x[:, 1:2]
 
         # --- block 1: FlowNetC
-        flow_c = up4(self.flownetc(x)[0] * self.div_flow)
-        concat1 = refine_input(x, flow_c, self.div_flow)
+        with span("tpureg.model.flownetc"):
+            flow_c = up4(self.flownetc(x)[0] * self.div_flow)
 
         # --- block 2: FlowNetS1
-        flow_s1 = up4(self.flownets_1(concat1)[0] * self.div_flow)
-        concat2 = refine_input(x, flow_s1, self.div_flow)
+        with span("tpureg.model.flownets_1"):
+            concat1 = refine_input(x, flow_c, self.div_flow)
+            flow_s1 = up4(self.flownets_1(concat1)[0] * self.div_flow)
 
         # --- block 3: FlowNetS2 (nearest ×4, reference quirk :160)
-        flow_s2 = up4(self.flownets_2(concat2)[0] * self.div_flow, "nearest")
-        norm_s2 = channelnorm(flow_s2)
-        err_s2 = channelnorm(x1 - warp2d(x2, flow_s2, convention="pixel"))
+        with span("tpureg.model.flownets_2"):
+            concat2 = refine_input(x, flow_s1, self.div_flow)
+            flow_s2 = up4(self.flownets_2(concat2)[0] * self.div_flow, "nearest")
+            norm_s2 = channelnorm(flow_s2)
+            err_s2 = channelnorm(x1 - warp2d(x2, flow_s2, convention="pixel"))
 
         # --- block 4: FlowNetSD (flow divided, not multiplied — :173)
-        flow_sd = up4(self.flownets_d(x)[0] / self.div_flow, "nearest")
-        norm_sd = channelnorm(flow_sd)
-        err_sd = channelnorm(x1 - warp2d(x2, flow_sd, convention="pixel"))
+        with span("tpureg.model.flownets_d"):
+            flow_sd = up4(self.flownets_d(x)[0] / self.div_flow, "nearest")
+            norm_sd = channelnorm(flow_sd)
+            err_sd = channelnorm(x1 - warp2d(x2, flow_sd, convention="pixel"))
 
         # --- block 5: fusion (9-channel stack, :185)
-        concat3 = torch.cat(
-            [x1, flow_sd, flow_s2, norm_sd, norm_s2, err_sd, err_s2], dim=1)
-        flow_fused = self.flownetfusion(concat3)
+        with span("tpureg.model.fusion"):
+            concat3 = torch.cat(
+                [x1, flow_sd, flow_s2, norm_sd, norm_s2, err_sd, err_s2], dim=1)
+            flow_fused = self.flownetfusion(concat3)
         return (flow_fused, flow_fused)
 
 

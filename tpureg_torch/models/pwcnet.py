@@ -29,6 +29,7 @@ from ..nn.layers import (
 )
 from ..ops.correlation import correlation, displacement_count
 from ..ops.warp import warp2d
+from ..utils.profiling import span
 
 __all__ = ["PWCDCNet", "PWCDCNetOld"]
 
@@ -38,6 +39,7 @@ _FEATS = (16, 32, 64, 96, 128, 196)
 _DENSE = (128, 128, 96, 64, 32)
 _CONTEXT = ((128, 1), (128, 2), (128, 4), (96, 8), (64, 16), (32, 1))
 _SCALES = {5: 0.625, 4: 1.25, 3: 2.5, 2: 5.0}
+_LEVEL_SPANS = {lvl: f"tpureg.model.level{lvl}" for lvl in _SCALES}
 
 
 def _bilinear_up_init(gain: float = 2.0) -> WeightInit:
@@ -166,27 +168,31 @@ class PWCDCNet(_PWCBase):
         return outs
 
     def forward(self, x):
-        p1 = self._pyramid(x[:, 0:1])
-        p2 = self._pyramid(x[:, 1:2])
-        parts = [self._corr(p1[5], p2[5])]
-        if self.feed_warped:
-            parts += [p1[5], p2[5]]
-        y, flow = self._decode(torch.cat(parts, dim=1), 6)
-        flows = {6: flow}
-        up_flow, up_feat = self.deconv6(flow), self.upfeat6(y)
-        for lvl in (5, 4, 3, 2):
-            c1, c2 = p1[lvl - 1], p2[lvl - 1]
-            warped = warp2d(c2, up_flow * _SCALES[lvl], convention="pwc")
-            parts = [self._corr(c1, warped), c1, up_flow, up_feat]
+        with span("tpureg.model.pyramid"):
+            p1 = self._pyramid(x[:, 0:1])
+            p2 = self._pyramid(x[:, 1:2])
+        with span("tpureg.model.level6"):
+            parts = [self._corr(p1[5], p2[5])]
             if self.feed_warped:
-                parts.insert(2, warped)
-            y, flows[lvl] = self._decode(torch.cat(parts, dim=1), lvl)
-            if lvl > 2:
-                up_flow = getattr(self, f"deconv{lvl}")(flows[lvl])
-                up_feat = getattr(self, f"upfeat{lvl}")(y)
-        flow2 = self._context_flow(y, flows[2])
-        flow1 = self.deconv2(flow2)
-        flow0 = self.deconv1(flow1)
+                parts += [p1[5], p2[5]]
+            y, flow = self._decode(torch.cat(parts, dim=1), 6)
+            flows = {6: flow}
+            up_flow, up_feat = self.deconv6(flow), self.upfeat6(y)
+        for lvl in (5, 4, 3, 2):
+            with span(_LEVEL_SPANS[lvl]):
+                c1, c2 = p1[lvl - 1], p2[lvl - 1]
+                warped = warp2d(c2, up_flow * _SCALES[lvl], convention="pwc")
+                parts = [self._corr(c1, warped), c1, up_flow, up_feat]
+                if self.feed_warped:
+                    parts.insert(2, warped)
+                y, flows[lvl] = self._decode(torch.cat(parts, dim=1), lvl)
+                if lvl > 2:
+                    up_flow = getattr(self, f"deconv{lvl}")(flows[lvl])
+                    up_feat = getattr(self, f"upfeat{lvl}")(y)
+        with span("tpureg.model.context"):
+            flow2 = self._context_flow(y, flows[2])
+            flow1 = self.deconv2(flow2)
+            flow0 = self.deconv1(flow1)
         return (flow0, flow1, flow2, flows[3], flows[4], flows[5], flows[6])
 
 

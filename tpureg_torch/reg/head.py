@@ -25,6 +25,7 @@ from torch import nn
 from ..models import build_predictor
 from ..ops.resize import resize2d
 from ..ops.warp import warp2d
+from ..utils.profiling import span
 
 __all__ = ["OpticalFlowReg", "stn_warp", "grid_image", "outputs_to_nhwc"]
 
@@ -80,27 +81,29 @@ class OpticalFlowReg(nn.Module):
     def register(self, imgs, segs=None):
         """NCHW: imgs/segs [B, 2, H, W] → (flows, warped images, warped segs
         or None, warped grid), all NCHW."""
-        flows = self.predictor(imgs)
-        moving = imgs[:, 1:2]
+        with span("tpureg.model"):
+            flows = self.predictor(imgs)
+        with span("tpureg.warp"):
+            moving = imgs[:, 1:2]
 
-        # Warp each DISTINCT flow once: FlowNet2 returns the fusion flow
-        # twice. Object identity only, so the math is unchanged.
-        warp_cache = {}
-        warped_images = []
-        for f in flows:
-            if id(f) not in warp_cache:
-                warp_cache[id(f)] = stn_warp(f, moving)
-            warped_images.append(warp_cache[id(f)])
+            # Warp each DISTINCT flow once: FlowNet2 returns the fusion flow
+            # twice. Object identity only, so the math is unchanged.
+            warp_cache = {}
+            warped_images = []
+            for f in flows:
+                if id(f) not in warp_cache:
+                    warp_cache[id(f)] = stn_warp(f, moving)
+                warped_images.append(warp_cache[id(f)])
 
-        warped_segs_int = None
-        if segs is not None:
-            warped_seg = stn_warp(flows[0], segs[:, 1:2])
-            warped_segs_int = torch.clamp(torch.round(warped_seg), 0,
-                                          self.num_seg_labels)
+            warped_segs_int = None
+            if segs is not None:
+                warped_seg = stn_warp(flows[0], segs[:, 1:2])
+                warped_segs_int = torch.clamp(torch.round(warped_seg), 0,
+                                              self.num_seg_labels)
 
-        b, _, h, w = imgs.shape
-        grid = grid_image(h, device=imgs.device)[None, None].expand(b, 1, h, w)
-        warped_grid = stn_warp(flows[0], grid)
+            b, _, h, w = imgs.shape
+            grid = grid_image(h, device=imgs.device)[None, None].expand(b, 1, h, w)
+            warped_grid = stn_warp(flows[0], grid)
         return tuple(flows), tuple(warped_images), warped_segs_int, warped_grid
 
     def forward(self, imgs, segs=None):

@@ -16,6 +16,8 @@ from typing import Callable, Optional, Union
 import torch
 from torch import nn
 
+from ..utils.profiling import span
+
 __all__ = ["TrainState", "create_train_state"]
 
 Schedule = Union[float, Callable[[int], float]]
@@ -45,10 +47,11 @@ class TrainState:
     def apply_gradients(self) -> None:
         """One Adam update from the parameters' ``.grad`` at the schedule's
         value for the count before the update (optax's convention)."""
-        lr = self.lr()
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
+        with span("tpureg.optimizer"):
+            lr = self.lr()
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
         self.step += 1
 
 

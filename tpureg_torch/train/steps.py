@@ -90,6 +90,7 @@ from ..losses import Affloss, DEFloss3D, OFEloss
 from ..nn import BatchNorm2d
 from ..ops.warp import base_grid
 from ..parallel.mesh import rank_and_world
+from ..utils.profiling import span
 
 __all__ = ["default_loss_kwargs", "loss_from_outputs", "cast_params",
            "make_train_step", "make_eval_step", "set_fp32_numerics",
@@ -191,9 +192,10 @@ def _loss_terms(model, imgs, segs, loss_kwargs, compute_dtype, remat=None,
                 group=None):
     outputs = _forward(model, imgs, segs, compute_dtype, remat)
     flows, warped = outputs[0], outputs[1]
-    p, c, s, total = loss_from_outputs(
-        (tuple(_nchw(f) for f in flows), tuple(_nchw(w) for w in warped)),
-        _nchw(imgs), loss_kwargs, group)
+    with span("tpureg.loss"):
+        p, c, s, total = loss_from_outputs(
+            (tuple(_nchw(f) for f in flows), tuple(_nchw(w) for w in warped)),
+            _nchw(imgs), loss_kwargs, group)
     return outputs, dict(zip(_TERMS, (total, p, c, s)))
 
 
@@ -230,10 +232,11 @@ class _DataParallel:
         all-reduce of their concatenation."""
         if self.group is None:
             return tensors
-        flat = torch.cat([t.reshape(-1) for t in tensors])
-        dist.all_reduce(flat, group=self.group)
-        if self.replicated:
-            flat.div_(self.world)
+        with span("tpureg.grad_reduce"):
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            dist.all_reduce(flat, group=self.group)
+            if self.replicated:
+                flat.div_(self.world)
         return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]),
                                              tensors)]
 
@@ -282,7 +285,7 @@ def make_eval_step(model, loss_kwargs: Optional[dict] = None,
     def eval_step(imgs, segs=None):
         # the gather stays outside inference mode: the slices kept on exit
         # are the parameters Adam updates in place
-        with dp.gathered():
+        with span("tpureg.eval_step"), dp.gathered():
             return step(imgs, segs)
 
     return eval_step
@@ -329,8 +332,13 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
     dp = _DataParallel(group, replicated, state.shards)
 
     def train_step(imgs):
+        with span("tpureg.train_step"):
+            return _train_step(imgs)
+
+    def _train_step(imgs):
         if synth is not None:
-            imgs = synth(*imgs)
+            with span("tpureg.synth"):
+                imgs = synth(*imgs)
         b = imgs.shape[0]
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
@@ -344,8 +352,9 @@ def make_train_step(state, loss_kwargs: Optional[dict] = None,
                     stats = _batchnorm_stats(model) if remat else ()
                     # a parameter the forward never reads (PWC's deconv0)
                     # gets a zero gradient, as tpureg's does
-                    g = torch.autograd.grad(metrics["loss"], params,
-                                            materialize_grads=True)
+                    with span("tpureg.backward"):
+                        g = torch.autograd.grad(metrics["loss"], params,
+                                                materialize_grads=True)
                 for buf, first in stats:  # undo the recomputed forward's update
                     buf.copy_(first)
                 terms = torch.stack([metrics[k].detach() for k in _TERMS])
@@ -421,6 +430,10 @@ def make_flow_supervised_step(state, compute_dtype: Optional[torch.dtype] = None
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(imgs, disp):
+        with span("tpureg.train_step"):
+            return _step(imgs, disp)
+
+    def _step(imgs, disp):
         model.train()
         h_full = imgs.shape[1]
         with torch.enable_grad():
@@ -440,7 +453,8 @@ def make_flow_supervised_step(state, compute_dtype: Optional[torch.dtype] = None
                 epe0 = term if epe0 is None else epe0
                 epe = epe + unit * term
             epe = epe / len(flows)
-            grads = torch.autograd.grad(epe, params, materialize_grads=True)
+            with span("tpureg.backward"):
+                grads = torch.autograd.grad(epe, params, materialize_grads=True)
         for p, g in zip(params, grads):
             p.grad = g
         state.apply_gradients()
@@ -461,13 +475,18 @@ def _volume_train_step(state, terms_of, group=None, split=None):
     dp = _DataParallel(group, replicated=False)
 
     def train_step(vols):
+        with span("tpureg.train_step"):
+            return _train_step(vols)
+
+    def _train_step(vols):
         model.train()
         x = vols.permute(0, 4, 1, 2, 3).contiguous()
         model.split = split
         try:
             with torch.enable_grad():
                 metrics = terms_of(model, x)
-                grads = torch.autograd.grad(metrics["loss"], params)
+                with span("tpureg.backward"):
+                    grads = torch.autograd.grad(metrics["loss"], params)
         finally:
             model.split = None
         grads = dp.gradients(params, grads)

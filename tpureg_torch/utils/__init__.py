@@ -1,7 +1,7 @@
 from .device import resolve_device
 from .flow_io import flow_to_image, make_color_wheel, read_flo, read_gen, write_flo
 from .meters import AverageMeter
-from .profiling import IteratorTimer, TimerBlock, device_memory_stats, trace
+from .profiling import kernel_launches, span, trace
 from .seeding import derive_seed, key_seq, seed_everything
 
 __all__ = [
@@ -12,9 +12,8 @@ __all__ = [
     "read_flo",
     "read_gen",
     "write_flo",
-    "IteratorTimer",
-    "TimerBlock",
-    "device_memory_stats",
+    "kernel_launches",
+    "span",
     "trace",
     "key_seq",
     "resolve_device",

@@ -1,80 +1,65 @@
-"""Tracing and timing helpers, the counterpart of
-``tpureg/utils/profiling.py`` (reference flownet2/utils/tools.py:24-53,
-98-128):
+"""Tracing of the port:
 
-- ``TimerBlock``: context manager logging named sub-steps
-- ``IteratorTimer``: wraps any iterator, accumulating per-item wall time
-- ``device_memory_stats``: ``torch.cuda.memory_stats`` of each visible card
+- ``span``: a named range at a layer boundary, recorded only while a
+  ``torch.profiler`` session records, in the same trace (and on the same
+  clock) as the kernels and copies it launches. The spans:
+
+  - ``tpureg.train_step`` and ``tpureg.eval_step``: a call of a step of
+    ``train/steps.py``;
+  - ``tpureg.synth``: the elastic synthesis inside the train step;
+  - ``tpureg.model``: the head's predictor (``reg/head.py``), and inside it
+    ``tpureg.model.<stage>``: FlowNet2's ``flownetc``, ``flownets_1``,
+    ``flownets_2``, ``flownets_d``, ``fusion``; PWC-Net's ``pyramid``,
+    ``level6`` ... ``level2``, ``context``;
+  - ``tpureg.warp``: the head's warps of images, labels and grid;
+  - ``tpureg.loss``, ``tpureg.backward`` (each ``torch.autograd.grad`` of
+    the steps), ``tpureg.grad_reduce`` (the data-parallel all-reduce),
+    ``tpureg.optimizer`` (Adam's update, ``train/state.py``).
+
+  The backward's kernels launch from autograd's engine, outside these
+  ranges; the trace ties each ``autograd::engine::evaluate_function``
+  node to its forward op by the op's sequence number, and through it to
+  the stage whose range holds that op.
+- ``kernel_launches``: the launches of the hand-written kernels so far
+  (the sum of the ``.launches`` counters of ``ops/library.py``'s ``OPS``).
 - ``trace``: context manager around ``torch.profiler`` over the CPU and the
-  cards, writing a trace that TensorBoard's profile plugin reads
+  cards, writing a trace that TensorBoard's profile plugin reads, spans
+  included.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Iterator
 
 import torch
 
-__all__ = ["TimerBlock", "IteratorTimer", "device_memory_stats", "trace"]
+__all__ = ["span", "kernel_launches", "trace"]
+
+# returned by every span while nothing records: no allocation, no clock read
+_NULL = contextlib.nullcontext()
 
 
-class TimerBlock:
-    def __init__(self, title: str, log=print):
-        self.title = title
-        self.log = log
-
-    def __enter__(self):
-        self.start = time.perf_counter()
-        self.log(f"{self.title}")
-        return self
-
-    def log_step(self, msg: str):
-        self.log(f"  [{time.perf_counter() - self.start:8.3f}s] {msg}")
-
-    def __exit__(self, *exc):
-        self.log(f"  [{time.perf_counter() - self.start:8.3f}s] done")
-        return False
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler session
+    records on this thread; otherwise one shared null context."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
+    return torch.profiler.record_function(name)
 
 
-class IteratorTimer:
-    """Iterator wrapper accumulating time spent producing each item."""
+def kernel_launches() -> int:
+    """Launches of the hand-written kernels K1-K6 in this process so far."""
+    from ..ops.library import OPS
 
-    def __init__(self, iterable):
-        self._it = iter(iterable)
-        self.sum = 0.0
-        self.count = 0
-
-    def __iter__(self):
-        return self
-
-    @property
-    def avg(self) -> float:
-        return self.sum / max(self.count, 1)
-
-    def __next__(self):
-        t0 = time.perf_counter()
-        item = next(self._it)
-        self.sum += time.perf_counter() - t0
-        self.count += 1
-        return item
-
-
-def device_memory_stats() -> dict:
-    """``{device: torch.cuda.memory_stats(device)}`` for each visible card;
-    ``{"cpu": {}}`` where there is none (the CPU keeps no statistics)."""
-    if not torch.cuda.is_available():
-        return {"cpu": {}}
-    return {str(torch.device("cuda", i)): torch.cuda.memory_stats(i)
-            for i in range(torch.cuda.device_count())}
+    return sum(launch.launches for _, _, launch in OPS)
 
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     """Profile the enclosed block, on the CPU and on the cards where there
     are any, into a ``*.pt.trace.json`` under ``logdir`` (TensorBoard's
-    profile plugin). Yields the profiler."""
+    profile plugin), with the port's spans. Yields the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
